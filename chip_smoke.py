@@ -10,13 +10,25 @@ Run from the root of a checkout, on a machine with a CUDA card:
 2. Kernel vs plain at the main path's shapes: 2^25 count slots (a 10 Mbp
    graph's bucket) and 2^28 (genome scale, 1 GiB of counts), each with a
    batch of 2^20 indices. The kernel must equal ``index_add_`` exactly;
-   median times over 25 warm calls each, by CUDA events.
+   median times over 25 warm calls each, by CUDA events. This phase holds
+   the sorted kernel (kernel #1), then the direct kernel (kernel #2) on the
+   same seeded batches.
 3. Main path end to end: the 10 Mbp synthetic pangenome and 1M reads of
    ``scripts/bench_call_scale.py`` (cached under ``.bench/``), augmented by
-   ``augment --engine device`` through the port's CLI. Its GFA must be
-   sha256-identical to the native host engine's, its log must show the CUDA
-   scatter and no fallback, and the kernel launches counted in that run must
-   equal its batches.
+   ``augment --engine device`` through the port's CLI with ``PANTAS_SCATTER``
+   unset. Its GFA must be sha256-identical to the native host engine's, its
+   log must show the CUDA sorted scatter and no fallback, and the sorted
+   kernel's launches counted in that run must equal its batches.
+4. The raw race (``python -m pantas_tpu_torch.coverage.bench_scatter``, the
+   path that reaches kernel #2) at 2^25 slots x 2^20 indices: all three
+   impls verify, and each kernel's launches counted in that run rise.
+5. The end-to-end race on the main path: ``PANTAS_SCATTER=race`` with a
+   fresh ``PANTAS_TORCH_CACHE``; the verdict must hold measured stats for
+   ``plain`` and ``cuda-sorted`` with ``explored`` true, the log must name
+   the decision, and the sha256 must equal the native engine's. Then
+   ``PANTAS_SCATTER=auto``: the cached verdict decides (the file is not
+   rewritten), and the sorted kernel's launches equal the batches if it
+   was chosen, 0 if ``plain`` was.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -32,6 +44,7 @@ import json
 import os
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -65,10 +78,9 @@ def _timed_ms(fns: dict) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def kernel_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
-    from pantas_tpu_torch.coverage import kernels
-    from pantas_tpu_torch.parallel.mesh import scatter_add_counts
-
+def _seeded_batch(log2_slots: int, seed: int):
+    """(n, indices, preloaded counts) on the card: 2^20 indices with 10%
+    padding and one 10,000-long run on the last slot."""
     n = 1 << log2_slots
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, n, size=BATCH, dtype=np.int32)
@@ -77,14 +89,22 @@ def kernel_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
     idx[run : run + 10_000] = n - 1  # one run of heavy duplicates, on the last slot
     d_idx = torch.from_numpy(idx).cuda()
     base = torch.from_numpy(rng.integers(0, 8, size=n, dtype=np.int32)).cuda()
+    return n, d_idx, base
+
+
+def kernel_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
+    from pantas_tpu_torch.coverage import kernels
+    from pantas_tpu_torch.parallel.mesh import scatter_add_counts
+
+    n, d_idx, base = _seeded_batch(log2_slots, seed)
     k_counts, p_counts = base.clone(), base.clone()
     del base
 
-    before = kernels.LAUNCHES
+    before = kernels.LAUNCHES["sorted_coverage_scatter_add"]
     kernels.sorted_coverage_scatter_add(k_counts, d_idx)
     scatter_add_counts(p_counts, d_idx)
     torch.cuda.synchronize()
-    if kernels.LAUNCHES != before + 1:
+    if kernels.LAUNCHES["sorted_coverage_scatter_add"] != before + 1:
         raise RuntimeError("sorted_coverage_scatter_add did not launch its kernel")
     err = int((k_counts - p_counts).abs().max())
     if err != 0 or not torch.equal(k_counts, p_counts):
@@ -103,6 +123,42 @@ def kernel_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
         f"[kernel] 2^{log2_slots} slots, 2^20 indices: equal, max_abs_err {err}; "
         f"kernel {ms['kernel']:.4f} ms (of which sort+bounds {ms['sort']:.4f} ms), "
         f"plain index_add_ {ms['plain']:.4f} ms; median of {REPS} [{label}]",
+        flush=True,
+    )
+    del k_counts, p_counts, d_idx
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
+
+
+def direct_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
+    """Kernel #2 against its plain version on ``kernel_vs_plain``'s batch."""
+    from pantas_tpu_torch.coverage import kernels
+
+    _, d_idx, base = _seeded_batch(log2_slots, seed)
+    k_counts, p_counts = base.clone(), base.clone()
+    del base
+
+    before = kernels.LAUNCHES["coverage_scatter_add"]
+    kernels.coverage_scatter_add(k_counts, d_idx)
+    kernels.coverage_scatter_add_plain(p_counts, d_idx)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["coverage_scatter_add"] != before + 1:
+        raise RuntimeError("coverage_scatter_add did not launch its kernel")
+    err = int((k_counts - p_counts).abs().max())
+    if err != 0 or not torch.equal(k_counts, p_counts):
+        raise RuntimeError(f"direct kernel != plain at 2^{log2_slots} slots (max abs err {err})")
+
+    ms = _timed_ms({
+        "kernel": lambda: kernels.coverage_scatter_add(k_counts, d_idx),
+        "plain": lambda: kernels.coverage_scatter_add_plain(p_counts, d_idx),
+    })
+    torch.cuda.synchronize()
+    if not torch.equal(k_counts, p_counts):
+        raise RuntimeError(f"direct kernel != plain after the timed calls at 2^{log2_slots}")
+    print(
+        f"[direct] 2^{log2_slots} slots, 2^20 indices: equal, max_abs_err {err}; "
+        f"kernel {ms['kernel']:.4f} ms, plain masked index_add_ {ms['plain']:.4f} ms; "
+        f"median of {REPS} [{label}]",
         flush=True,
     )
     del k_counts, p_counts, d_idx
@@ -132,11 +188,8 @@ class _Tee(io.TextIOBase):
             st.flush()
 
 
-def main_path(label: str) -> int:
-    """Run the device augment on the 10 Mbp graph; return its kernel launches."""
-    from pantas_tpu_torch import cli
-    from pantas_tpu_torch.coverage import kernels
-
+def _inputs():
+    """The 10 Mbp graph and 1M-read GAF (built once under ``.bench/``)."""
     sys.path.insert(0, str(REPO / "scripts"))
     from bench_call_scale import ensure_graph, synth_gaf
 
@@ -150,6 +203,60 @@ def main_path(label: str) -> int:
         os.replace(tmp, gaf)
     print(f"[main] inputs ready in {time.perf_counter() - t0:.1f} s: {gfa.stat().st_size} B GFA, "
           f"{gaf.stat().st_size} B GAF", flush=True)
+    return wd, gfa, gaf
+
+
+def _device_augment(gaf: Path, gfa: Path, out: Path, env: dict):
+    """``augment --engine device`` through the port's CLI under ``env``
+    (None unsets a variable); the launch counts are zeroed just before and
+    read just after. Returns (log, launches by kernel, seconds, batches)."""
+    from pantas_tpu_torch import cli
+    from pantas_tpu_torch.coverage import kernels
+
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    captured = io.StringIO()
+    try:
+        kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(_Tee(sys.stderr, captured)):
+            rc = cli.main(["augment", "--engine", "device", str(gaf), str(gfa), "-o", str(out)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if rc:
+        raise RuntimeError(f"device augment exited {rc}")
+    log = captured.getvalue()
+    if "fallback" in log:
+        raise RuntimeError("device augment fell back")
+    line = next(ln for ln in log.splitlines() if ln.startswith("[device] kernel launches:"))
+    batches = int(line.rsplit("batches:", 1)[1].strip(" )"))
+    return log, launches, seconds, batches
+
+
+def _decision(log: str) -> str:
+    """The last ``[device] scatter impl:`` name the log shows."""
+    names = [ln.split(": ", 1)[1].split(" (")[0] for ln in log.splitlines()
+             if ln.startswith("[device] scatter impl: ")]
+    if not names or names[-1] == "race pending":
+        raise RuntimeError(f"the log names no scatter decision: {names}")
+    return names[-1]
+
+
+def main_path(label: str, wd: Path, gfa: Path, gaf: Path) -> tuple:
+    """Run the device augment with ``PANTAS_SCATTER`` unset; return (its
+    sorted-kernel launches, the native engine's sha256)."""
+    from pantas_tpu_torch import cli
 
     ref_out, dev_out = wd / "smoke_native.gfa", wd / "smoke_device.gfa"
     t0 = time.perf_counter()
@@ -157,26 +264,12 @@ def main_path(label: str) -> int:
         raise RuntimeError("native augment failed")
     native_s = time.perf_counter() - t0
 
-    captured = io.StringIO()
-    kernels.LAUNCHES = 0
-    t0 = time.perf_counter()
-    with contextlib.redirect_stderr(_Tee(sys.stderr, captured)):
-        rc = cli.main(["augment", "--engine", "device", str(gaf), str(gfa), "-o", str(dev_out)])
-    torch.cuda.synchronize()
-    device_s = time.perf_counter() - t0
-    launches = kernels.LAUNCHES
-    if rc:
-        raise RuntimeError(f"device augment exited {rc}")
-
-    log = captured.getvalue()
-    if "scatter impl: cuda-sorted" not in log:
+    log, counted, device_s, batches = _device_augment(gaf, gfa, dev_out, {"PANTAS_SCATTER": None})
+    launches = counted["sorted_coverage_scatter_add"]
+    if _decision(log) != "cuda-sorted":
         raise RuntimeError("device augment did not run the CUDA scatter")
-    if "fallback" in log:
-        raise RuntimeError("device augment fell back")
-    line = next(ln for ln in log.splitlines() if ln.startswith("[device] kernel launches:"))
-    batches = int(line.rsplit("batches:", 1)[1].strip(" )"))
-    if not (launches == batches >= 1):
-        raise RuntimeError(f"{launches} kernel launches for {batches} batches")
+    if not (launches == batches >= 1) or counted["coverage_scatter_add"]:
+        raise RuntimeError(f"{counted} kernel launches for {batches} batches")
     ref_sha, dev_sha = _sha256(ref_out), _sha256(dev_out)
     if ref_sha != dev_sha:
         raise RuntimeError(f"device GFA {dev_sha} != native GFA {ref_sha}")
@@ -188,7 +281,70 @@ def main_path(label: str) -> int:
     )
     for p in (ref_out, dev_out):
         p.unlink()
+    return launches, ref_sha
+
+
+def raw_race(label: str) -> dict:
+    """``bench_scatter`` at 2^25 slots x 2^20 indices; return the launches
+    counted in that run, by kernel."""
+    from pantas_tpu_torch import backend
+    from pantas_tpu_torch.coverage import bench_scatter, kernels, scatter_impls
+
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    if bench_scatter.main([str(1 << 25), str(BATCH)]):
+        raise RuntimeError("bench_scatter failed")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if not all(launches.values()):
+        raise RuntimeError(f"the raw race did not launch every kernel: {launches}")
+    name, _ = scatter_impls.pick_scatter_impl(1 << 25, BATCH, device=backend.device("cuda"))
+    print(f"[race] raw race at 2^25 slots x 2^20 indices: all 3 impls verified, launches "
+          f"{launches}; pick_scatter_impl picks {name} [{label}]", flush=True)
     return launches
+
+
+def race_path(label: str, wd: Path, gfa: Path, gaf: Path, ref_sha: str) -> None:
+    """The end-to-end race on the main path, then its cached verdict."""
+    from pantas_tpu_torch.coverage import scatter_impls
+
+    out = wd / "smoke_race.gfa"
+    with tempfile.TemporaryDirectory(dir=wd) as cache:
+        env = {"PANTAS_SCATTER": "race", "PANTAS_TORCH_CACHE": cache}
+        log, counted, raced_s, batches = _device_augment(gaf, gfa, out, env)
+        name = _decision(log)
+        vf = Path(cache) / "scatter_verdict.json"
+        (key, entry), = json.loads(vf.read_text()).items()
+        stats = entry["stats"]
+        if not (entry["explored"] and all(stats.get(k, {}).get("times")
+                                          for k in ("plain", "cuda-sorted"))):
+            raise RuntimeError(f"the race did not measure plain and cuda-sorted: {entry}")
+        if name != entry["impl"] or _sha256(out) != ref_sha:
+            raise RuntimeError(f"raced augment: decision {name}, verdict {entry['impl']}, "
+                               "or its GFA differs from the native engine's")
+        medians = {k: round(v["median_s"] * 1e3, 4) for k, v in stats.items()}
+        firsts = {k: round(v["first_s"] * 1e3, 4) for k, v in stats.items()}
+        print(f"[race] PANTAS_SCATTER=race: {raced_s:.3f} s, decision {name} "
+              f"(~{entry['batches_hint']} batches expected, {batches} run); median step ms "
+              f"{medians}, first call ms {firsts}; launches {counted}; verdict key {key}; "
+              f"sha256 == native engine's [{label}]", flush=True)
+
+        verdict = vf.read_bytes()
+        env["PANTAS_SCATTER"] = "auto"
+        log, counted, cached_s, batches = _device_augment(gaf, gfa, out, env)
+        cached = _decision(log)
+        if vf.read_bytes() != verdict:
+            raise RuntimeError("PANTAS_SCATTER=auto raced again instead of using the verdict")
+        if cached != scatter_impls._decide(stats, entry["batches_hint"]):
+            raise RuntimeError(f"auto chose {cached}; the cached verdict decides otherwise")
+        want = batches if cached == "cuda-sorted" else 0
+        if counted != {"sorted_coverage_scatter_add": want, "coverage_scatter_add": 0}:
+            raise RuntimeError(f"auto chose {cached}: {counted} launches for {batches} batches")
+        if _sha256(out) != ref_sha:
+            raise RuntimeError("the auto run's GFA differs from the native engine's")
+        print(f"[race] PANTAS_SCATTER=auto: {cached_s:.3f} s, cached verdict decides {cached} "
+              f"without a race, launches {counted} for {batches} batches, sha256 == native "
+              f"engine's [{label}]", flush=True)
+    out.unlink()
 
 
 def main() -> int:
@@ -215,7 +371,11 @@ def main() -> int:
         print(ptxas.read_text().strip(), flush=True)
 
     shapes = [kernel_vs_plain(25, 25, label), kernel_vs_plain(28, 28, label)]
-    launches = main_path(label)
+    direct = [direct_vs_plain(25, 25, label), direct_vs_plain(28, 28, label)]
+    wd, gfa, gaf = _inputs()
+    launches, ref_sha = main_path(label, wd, gfa, gaf)
+    raw_launches = raw_race(label)
+    race_path(label, wd, gfa, gaf, ref_sha)
 
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     if jax_mods:
@@ -230,6 +390,15 @@ def main() -> int:
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": shapes[0]["ms"],  # the main path's 2^25 bucket
         "plain_ms": shapes[0]["plain_ms"],
+    }, {
+        "name": "coverage_scatter_add",
+        "route": "cuda",
+        "source": "pantas_tpu_torch/csrc/coverage_direct.cu",
+        "replaces": "pantas_tpu/coverage/pallas_kernel.py:36",
+        "launches": raw_launches["coverage_scatter_add"],  # its path: the raw race
+        "max_abs_err": max(s["max_abs_err"] for s in direct),
+        "ms": direct[0]["ms"],
+        "plain_ms": direct[0]["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -14,6 +14,7 @@ backend.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -66,7 +67,11 @@ def _cmd_augment(argv):
     if args.engine in ("device", "device-py"):
         from pantas_tpu_torch import backend
 
-        dev = backend.device(args.device)  # before the output is opened
+        from pantas_tpu_torch.coverage.device import scatter_choice
+
+        # before the output is opened
+        dev = backend.device(args.device)
+        scatter_choice(os.environ.get("PANTAS_SCATTER", ""))
     with _tpu_cli._stage_out(args.out) as out:
         return _run_augment(args, dev, out)
 

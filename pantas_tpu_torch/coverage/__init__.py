@@ -1,3 +1,5 @@
 """Coverage accumulation of the port: the device augment engine
-(:mod:`.device`), its scatter kernel wrapper (:mod:`.kernels`) and the nvcc
-build of the kernel sources (:mod:`._build`). Nothing is imported here."""
+(:mod:`.device`), the scatter selection and its races
+(:mod:`.scatter_impls`, :mod:`.bench_scatter`), the kernel wrappers
+(:mod:`.kernels`) and the nvcc build of the kernel sources (:mod:`._build`).
+Nothing is imported here."""

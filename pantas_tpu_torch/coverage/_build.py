@@ -76,5 +76,9 @@ def load() -> ctypes.CDLL:
         lib.coverage_scatter_error_string.restype = ctypes.c_char_p
         lib.coverage_scatter_sorted.argtypes = [vp, ctypes.c_int64, vp, vp, ctypes.c_int, vp]
         lib.coverage_scatter_sorted.restype = ctypes.c_int
+        lib.coverage_direct_block.argtypes = []
+        lib.coverage_direct_block.restype = ctypes.c_int
+        lib.coverage_scatter_direct.argtypes = [vp, ctypes.c_int64, vp, ctypes.c_int64, vp]
+        lib.coverage_scatter_direct.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -3,9 +3,10 @@
 Port of ``pantas_tpu/coverage/device.py`` for a single device. The per-read
 semantics stay on the host; what reaches the device is a flat stream of
 count-slot indices into one counts vector (layout ``[NC | IL | OL | RC]``,
-see :mod:`pantas_tpu.graph.compiler`), and each batch of it is one call of
-:func:`pantas_tpu_torch.coverage.kernels.sorted_coverage_scatter_add`: on a
-CUDA device the hand-written kernel, on the CPU its plain version.
+see :mod:`pantas_tpu.graph.compiler`), and each batch of it is one step of
+the scatter that ``PANTAS_SCATTER`` selects (:func:`scatter_choice`): by
+default :func:`pantas_tpu_torch.coverage.kernels.sorted_coverage_scatter_add`,
+on a CUDA device the hand-written kernel, on the CPU its plain version.
 
 The host side (``SlotEncoder``, ``counts_from_device``, the native parser and
 emitter) is ``pantas_tpu``'s own code, imported, not copied. Checkpoints use
@@ -31,7 +32,15 @@ from pantas_tpu.graph.compiler import GraphTensors
 from pantas_tpu.io.gaf import parse_gaf_line
 from pantas_tpu.io.xopen import xopen
 from pantas_tpu_torch import backend
-from pantas_tpu_torch.coverage import kernels
+from pantas_tpu_torch.coverage import kernels, scatter_impls
+
+# PANTAS_SCATTER values: the JAX package's spellings and the port's own names
+SCATTER_CHOICES = {
+    "xla": "plain", "off": "plain", "plain": "plain",
+    "pallas": "cuda-sorted", "sorted": "cuda-sorted", "pallas-sorted": "cuda-sorted",
+    "cuda-sorted": "cuda-sorted",
+    "race": "race", "auto": "race",
+}
 
 
 class NativeFeedUnavailable(RuntimeError):
@@ -49,12 +58,41 @@ def counts_from_numpy(flat: np.ndarray, padded_slots: int, device) -> torch.Tens
     return out
 
 
+def scatter_choice(value: str) -> str:
+    """``plain``, ``cuda-sorted`` or ``race`` for a ``PANTAS_SCATTER`` value.
+
+    Unset (empty) is ``cuda-sorted``, the kernel measured on the card, where
+    the JAX package races by default on a TPU (ROADMAP.md §3). An unknown
+    value raises, where the JAX package takes its plain scatter in silence.
+    """
+    if not value:
+        return "cuda-sorted"
+    try:
+        return SCATTER_CHOICES[value.lower()]
+    except KeyError:
+        raise ValueError(
+            f"PANTAS_SCATTER={value!r} is not one of {', '.join(SCATTER_CHOICES)}"
+        ) from None
+
+
+def impl_label(name: str, device: torch.device) -> str:
+    """The impl as logged: on the CPU a kernel's wrapper runs its plain
+    version, so ``cuda-sorted`` shows as ``cpu-sorted-plain`` there."""
+    if device.type == "cuda" or not name.startswith("cuda-"):
+        return name
+    return f"cpu-{name.removeprefix('cuda-')}-plain"
+
+
 class DeviceCoverage:
     """Accumulate a slot stream on one device.
 
-    ``batches_hint`` is the stage's expected batch count
-    (:func:`pantas_tpu.coverage.device._estimate_batches`), logged beside the
-    scatter implementation.
+    The scatter step is chosen from ``PANTAS_SCATTER`` (:func:`scatter_choice`)
+    as the JAX engine chooses it: a named impl at once, or ``race``/``auto``
+    on the first batch that holds a real index, by
+    :func:`.scatter_impls.pick_scatter_endtoend` with ``batches_hint``, the
+    stage's expected batch count
+    (:func:`pantas_tpu.coverage.device._estimate_batches`); ``race`` forces
+    a fresh race, ``auto`` decides from a cached verdict where one exists.
     """
 
     def __init__(self, tensors: GraphTensors, device, batches_hint=None, log=None):
@@ -66,10 +104,16 @@ class DeviceCoverage:
         self._padded_slots = max(1 << 12, 1 << (tensors.total_slots - 1).bit_length())
         self.counts = torch.zeros(self._padded_slots, dtype=torch.int32, device=self.device)
         self.batches = 0
-        self._launches_at_start = kernels.LAUNCHES
-        impl = "cuda-sorted" if self.device.type == "cuda" else "cpu-sorted-plain"
+        self._launches_at_start = sum(kernels.LAUNCHES.values())
+        self._batches_hint = batches_hint
+        env = os.environ.get("PANTAS_SCATTER", "")
+        choice = scatter_choice(env)
+        self._force_race = env.lower() == "race"
+        # resolved on the first real batch when racing
+        self._step = None if choice == "race" else scatter_impls.SCATTER_IMPLS[choice]
+        label = "race pending" if choice == "race" else impl_label(choice, self.device)
         print(
-            f"[device] scatter impl: {impl} ({self._padded_slots} slots, "
+            f"[device] scatter impl: {label} ({self._padded_slots} slots, "
             f"~{batches_hint} batches expected)",
             file=self.log,
         )
@@ -80,14 +124,29 @@ class DeviceCoverage:
             padded = -np.ones(pad_to, dtype=np.int32)
             padded[: len(slots)] = slots
             slots = padded
+        step = self._step
+        if step is None:
+            if not (np.asarray(slots) >= 0).any():
+                # an all-padding batch must not decide the race: its empty
+                # stream verifies any impl and times none; it goes through
+                # the plain step and the race waits for a real batch
+                step = scatter_impls.SCATTER_IMPLS["plain"]
+            else:
+                name, step = scatter_impls.pick_scatter_endtoend(
+                    self._padded_slots, len(slots), sample=slots,
+                    force_race=self._force_race, batches_hint=self._batches_hint,
+                    device=self.device,
+                )
+                print(f"[device] scatter impl: {impl_label(name, self.device)}", file=self.log)
+                self._step = step
         idx = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32)).to(self.device)
-        kernels.sorted_coverage_scatter_add(self.counts, idx)
+        step(self.counts, idx)
         self.batches += 1
 
     def result(self) -> np.ndarray:
         flat = self._read_back(self.counts)
         print(
-            f"[device] kernel launches: {kernels.LAUNCHES - self._launches_at_start} "
+            f"[device] kernel launches: {sum(kernels.LAUNCHES.values()) - self._launches_at_start} "
             f"(batches: {self.batches})",
             file=self.log,
         )

@@ -1,17 +1,22 @@
 """Coverage scatter-add, ``counts[idx] += 1`` for every ``idx >= 0``.
 
-Replaces ``pantas_tpu/coverage/pallas_kernel.py::sorted_coverage_scatter_add``.
-The batch is sorted and split at windows of :data:`WINDOW` count slots
-(``torch.sort`` + ``torch.searchsorted``, outside the kernel as on the TPU);
-each window's segment of the sorted stream then becomes a histogram added
-into its slots.
+Two hand-written kernels, each with its plain PyTorch version:
 
-On the card this is bound by bytes of ``counts`` touched, not by arithmetic:
-the counts vector reaches 1 GiB at genome scale while a batch holds 2^20
-indices. The hand-written kernel (``csrc/coverage_scatter.cu``) keeps those
-bytes proportional to the indices: a window with no indices costs nothing,
-and a window with some writes back only the slots they hit, with no padding
-copy of ``counts``.
+- :func:`sorted_coverage_scatter_add` replaces
+  ``pantas_tpu/coverage/pallas_kernel.py::sorted_coverage_scatter_add``. The
+  batch is sorted and split at windows of :data:`WINDOW` count slots
+  (``torch.sort`` + ``torch.searchsorted``, outside the kernel as on the
+  TPU); each window's segment of the sorted stream then becomes a histogram
+  added into its slots (``csrc/coverage_scatter.cu``).
+- :func:`coverage_scatter_add` replaces
+  ``pantas_tpu/coverage/pallas_kernel.py::coverage_scatter_add``: one global
+  atomic add per index, no sort (``csrc/coverage_direct.cu``). Its batches
+  are a multiple of :data:`BLOCK`, as the TPU kernel's are.
+
+On the card both are bound by memory traffic, not by arithmetic: the counts
+vector reaches 1 GiB at genome scale while a batch holds 2^20 indices, so
+each kernel touches only the slots its indices name, with no padding copy
+of ``counts``.
 
 ``counts`` is updated in place (the JAX step donated its buffer for the same
 reason: an undonated 1 GiB update would copy it every batch).
@@ -22,13 +27,15 @@ from __future__ import annotations
 import torch
 
 from pantas_tpu_torch.coverage import _build
+from pantas_tpu_torch.parallel.mesh import scatter_add_counts
 
 WINDOW = 16384  # slots per window; equals kWindow in csrc/coverage_scatter.cu
+BLOCK = 2048  # batch granule of the direct kernel; equals kBlock in csrc/coverage_direct.cu
 INT32_MAX = 2**31 - 1
 
-# kernel launches in this process; chip_smoke.py reads it to prove the main
-# path ran through the kernel
-LAUNCHES = 0
+# kernel launches in this process, by wrapper; chip_smoke.py reads them to
+# prove which kernel a path ran through
+LAUNCHES = {"sorted_coverage_scatter_add": 0, "coverage_scatter_add": 0}
 
 
 def _check(counts: torch.Tensor, idx: torch.Tensor) -> int:
@@ -80,11 +87,9 @@ def sorted_coverage_scatter_add(counts: torch.Tensor, idx: torch.Tensor) -> torc
     stream and raises if the launch fails; on a CPU tensor it runs
     :func:`sorted_coverage_scatter_add_plain`. Any other device raises.
     """
-    global LAUNCHES
     if counts.device.type == "cpu":
         return sorted_coverage_scatter_add_plain(counts, idx)
-    if counts.device.type != "cuda":
-        raise ValueError(f"no coverage scatter kernel for device {counts.device}")
+    _check_cuda(counts)
     n = _check(counts, idx)
     s, bounds = sorted_window_bounds(idx, n)
     lib = _build.load()
@@ -94,8 +99,56 @@ def sorted_coverage_scatter_add(counts: torch.Tensor, idx: torch.Tensor) -> torc
         counts.data_ptr(), n, s.data_ptr(), bounds.data_ptr(), bounds.numel() - 1,
         torch.cuda.current_stream(counts.device).cuda_stream,
     )
+    _raise_on(lib, err, "coverage_scatter_sorted")
+    LAUNCHES["sorted_coverage_scatter_add"] += 1
+    return counts
+
+
+def _check_direct(counts: torch.Tensor, idx: torch.Tensor) -> int:
+    n = _check(counts, idx)
+    if idx.numel() % BLOCK:
+        # the JAX kernel asserts the same (pallas_kernel.py:43)
+        raise ValueError(f"index batch of {idx.numel()} must be padded to a multiple of {BLOCK}")
+    return n
+
+
+def coverage_scatter_add_plain(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The direct kernel's plain PyTorch version: the same checks, then a
+    masked ``index_add_`` that also drops slots at or past ``n``."""
+    n = _check_direct(counts, idx)
+    return scatter_add_counts(counts, torch.where(idx < n, idx, -1))
+
+
+def coverage_scatter_add(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``counts[idx] += 1`` for ``0 <= idx < n`` (``-1`` is padding), in
+    place; ``idx.numel()`` must be a multiple of :data:`BLOCK`.
+
+    On a CUDA tensor this launches the direct kernel on the current stream
+    and raises if the launch fails; on a CPU tensor it runs
+    :func:`coverage_scatter_add_plain`. Any other device raises.
+    """
+    if counts.device.type == "cpu":
+        return coverage_scatter_add_plain(counts, idx)
+    _check_cuda(counts)
+    n = _check_direct(counts, idx)
+    lib = _build.load()
+    if lib.coverage_direct_block() != BLOCK:
+        raise RuntimeError("csrc/coverage_direct.cu kBlock disagrees with BLOCK")
+    err = lib.coverage_scatter_direct(
+        counts.data_ptr(), n, idx.data_ptr(), idx.numel(),
+        torch.cuda.current_stream(counts.device).cuda_stream,
+    )
+    _raise_on(lib, err, "coverage_scatter_direct")
+    LAUNCHES["coverage_scatter_add"] += 1
+    return counts
+
+
+def _check_cuda(counts: torch.Tensor) -> None:
+    if counts.device.type != "cuda":
+        raise ValueError(f"no coverage scatter kernel for device {counts.device}")
+
+
+def _raise_on(lib, err: int, entry: str) -> None:
     if err:
         msg = lib.coverage_scatter_error_string(err).decode()
-        raise RuntimeError(f"coverage_scatter_sorted launch failed: {msg} ({err})")
-    LAUNCHES += 1
-    return counts
+        raise RuntimeError(f"{entry} launch failed: {msg} ({err})")

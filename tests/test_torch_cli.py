@@ -13,7 +13,7 @@ from fixtures_micro import write_micro
 
 from pantas_tpu import cli as tpu_cli
 from pantas_tpu_torch import backend, cli
-from pantas_tpu_torch.coverage import kernels
+from pantas_tpu_torch.coverage import scatter_impls
 
 
 def test_subcommands_match_pantas_tpu():
@@ -83,7 +83,7 @@ def test_device_errors_do_not_fall_back(tmp_path, monkeypatch):
     def broken(counts, idx):
         raise RuntimeError("kernel failed")
 
-    monkeypatch.setattr(kernels, "sorted_coverage_scatter_add", broken)
+    monkeypatch.setitem(scatter_impls.SCATTER_IMPLS, "cuda-sorted", broken)
     gfa, gaf = write_micro(tmp_path)
     with pytest.raises(RuntimeError, match="kernel failed"):
         cli.main(["augment", "--engine", "device", "--device", "cpu",

@@ -1,11 +1,14 @@
-"""The port's coverage scatter vs the JAX package's, exact.
+"""The port's coverage scatters vs the JAX package's, exact.
 
 The same seeded numpy inputs go through
 ``pantas_tpu.coverage.pallas_kernel.sorted_coverage_scatter_add`` (the Pallas
 TPU kernel, in interpret mode on the CPU), its XLA scatter, and the port's
 ``sorted_coverage_scatter_add`` (its plain version on the CPU, which shares
-the kernel wrapper's sort and window bounds) and ``scatter_add_counts``.
-Integer adds are exact in any order, so every comparison is equality.
+the kernel wrapper's sort and window bounds), ``coverage_scatter_add`` (the
+direct kernel's plain version on the CPU) and ``scatter_add_counts``.
+Integer adds are exact in any order, so every comparison is equality. The
+direct kernel against its Pallas counterpart in interpret mode is in
+``test_torch_direct_interpret.py``.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from pantas_tpu.coverage.pallas_kernel import (
+    coverage_scatter_add as tpu_direct_scatter,
     sorted_coverage_scatter_add as tpu_sorted_scatter,
     xla_scatter_add,
 )
@@ -79,6 +83,39 @@ def test_port_scatter_matches_pallas_and_xla(case):
     assert np.array_equal(plain, expect)
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_port_direct_scatter_matches_xla(case):
+    counts, idx = _case(case)
+    xla = np.asarray(jax.jit(xla_scatter_add)(jnp.asarray(counts), jnp.asarray(idx)))
+    port = kernels.coverage_scatter_add(
+        torch.from_numpy(counts.copy()), torch.from_numpy(idx)
+    ).numpy()
+    assert np.array_equal(port, xla)
+    assert np.array_equal(port, _expected(counts, idx))
+
+
+def test_direct_scatter_refuses_batches_off_the_block_in_both_packages():
+    """The JAX kernel asserts ``m % BLOCK == 0``; the port raises ValueError
+    on the same batches, on its plain version and its wrapper alike."""
+    counts, idx = np.zeros(5000, np.int32), np.zeros(kernels.BLOCK + 8, np.int32)
+    with pytest.raises(AssertionError, match=str(kernels.BLOCK)):
+        tpu_direct_scatter(jnp.asarray(counts), jnp.asarray(idx))
+    for fn in (kernels.coverage_scatter_add, kernels.coverage_scatter_add_plain):
+        with pytest.raises(ValueError, match=str(kernels.BLOCK)):
+            fn(torch.from_numpy(counts), torch.from_numpy(idx))
+
+
+def test_direct_scatter_in_place_drops_padding_and_slots_past_n():
+    """Slots at or past ``n`` are dropped, as the sorted kernel masks at n."""
+    counts = torch.zeros(16, dtype=torch.int32)
+    idx = torch.full((kernels.BLOCK,), -1, dtype=torch.int32)
+    idx[:5] = torch.tensor([3, 3, 0, 16, 1 << 20], dtype=torch.int32)
+    assert kernels.coverage_scatter_add(counts, idx) is counts
+    assert counts[3] == 2 and counts[0] == 1 and int(counts.sum()) == 3
+    sorted_counts = kernels.sorted_coverage_scatter_add(torch.zeros(16, dtype=torch.int32), idx)
+    assert torch.equal(sorted_counts, counts)
+
+
 def test_scatter_updates_in_place_and_drops_padding():
     counts = torch.zeros(16, dtype=torch.int32)
     idx = torch.tensor([3, -1, 3, 0, -1], dtype=torch.int32)
@@ -116,6 +153,8 @@ def test_window_bounds_partition_the_sorted_stream():
 def test_scatter_rejects_what_the_kernel_does_not_take(counts, idx, err):
     with pytest.raises(err):
         kernels.sorted_coverage_scatter_add(counts, idx)
+    with pytest.raises(err):
+        kernels.coverage_scatter_add(counts, idx)
 
 
 @pytest.fixture
@@ -132,10 +171,26 @@ def test_cuda_kernel_matches_plain(cuda):
         d_idx = torch.from_numpy(idx).to(cuda)
         got = torch.from_numpy(counts).to(cuda)
         want = got.clone()
-        before = kernels.LAUNCHES
+        before = kernels.LAUNCHES["sorted_coverage_scatter_add"]
         kernels.sorted_coverage_scatter_add(got, d_idx)
         scatter_add_counts(want, d_idx)
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES == before + 1
+        assert kernels.LAUNCHES["sorted_coverage_scatter_add"] == before + 1
+        assert torch.equal(got, want), case
+        assert np.array_equal(got.cpu().numpy(), _expected(counts, idx)), case
+
+
+@pytest.mark.cuda
+def test_cuda_direct_kernel_matches_plain(cuda):
+    for case in CASES:
+        counts, idx = _case(case)
+        d_idx = torch.from_numpy(idx).to(cuda)
+        got = torch.from_numpy(counts).to(cuda)
+        want = got.clone()
+        before = kernels.LAUNCHES["coverage_scatter_add"]
+        kernels.coverage_scatter_add(got, d_idx)
+        kernels.coverage_scatter_add_plain(want, d_idx)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["coverage_scatter_add"] == before + 1
         assert torch.equal(got, want), case
         assert np.array_equal(got.cpu().numpy(), _expected(counts, idx)), case
