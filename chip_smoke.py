@@ -12,7 +12,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
    batch of 2^20 indices. The kernel must equal ``index_add_`` exactly;
    median times over 25 warm calls each, by CUDA events. This phase holds
    the sorted kernel (kernel #1), then the direct kernel (kernel #2) on the
-   same seeded batches.
+   same seeded batches. Then both kernels, the sorted wrapper's sort +
+   bounds and ``index_add_`` once more at 2^25 on 2^20 uniform indices in
+   [-1, n), which hold no long run.
 3. Main path end to end: the 10 Mbp synthetic pangenome and 1M reads of
    ``scripts/bench_call_scale.py`` (cached under ``.bench/``), augmented by
    ``augment --engine device`` through the port's CLI with ``PANTAS_SCATTER``
@@ -29,6 +31,14 @@ Run from the root of a checkout, on a machine with a CUDA card:
    ``PANTAS_SCATTER=auto``: the cached verdict decides (the file is not
    rewritten), and the sorted kernel's launches equal the batches if it
    was chosen, 0 if ``plain`` was.
+6. The call stage on phase 3's device-augmented GFA: ``call --rca 0``
+   through the port's CLI on the host engine, then ``--engine device`` on
+   the card. The sorted rows must be equal, with at least 5,000 events, and
+   every finder with candidates must have evaluated them all on ``cuda``
+   (``EVALS``), none on the CPU. The 10 Mbp graph has no novel junctions, so
+   the micro fixtures of ``tests/fixtures_call.py`` then run with ``--rca 0
+   --novel`` on both engines: equal rows, and the novel ES, novel exonic SS
+   and CE finders evaluated on ``cuda``.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -46,6 +56,7 @@ import statistics
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -166,6 +177,40 @@ def direct_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
     return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
 
 
+def uniform_vs_plain(log2_slots: int, label: str) -> dict:
+    """Both kernels, the sorted wrapper's sort + bounds and ``index_add_`` on
+    2^20 uniform indices in [-1, n): a batch with no long run, unlike the
+    smoke batch above. All three scatters must end equal."""
+    from pantas_tpu_torch.coverage import kernels
+    from pantas_tpu_torch.parallel.mesh import scatter_add_counts
+
+    n = 1 << log2_slots
+    rng = np.random.default_rng(log2_slots + 1)
+    d_idx = torch.from_numpy(rng.integers(-1, n, size=BATCH, dtype=np.int32)).cuda()
+    counts = {k: torch.zeros(n, dtype=torch.int32, device="cuda") for k in ("sorted", "direct", "plain")}
+    ms = _timed_ms({
+        "sorted": lambda: kernels.sorted_coverage_scatter_add(counts["sorted"], d_idx),
+        "sort": lambda: kernels.sorted_window_bounds(d_idx, n),
+        "direct": lambda: kernels.coverage_scatter_add(counts["direct"], d_idx),
+        "plain": lambda: scatter_add_counts(counts["plain"], d_idx),
+    })
+    torch.cuda.synchronize()
+    # each scatter ran the same batch WARM + REPS times
+    err = max(int((counts[k] - counts["plain"]).abs().max()) for k in ("sorted", "direct"))
+    if err:
+        raise RuntimeError(f"kernels != index_add_ on uniform indices (max abs err {err})")
+    print(
+        f"[uniform] 2^{log2_slots} slots, 2^20 uniform indices in [-1, n): equal, max_abs_err 0; "
+        f"sorted kernel {ms['sorted']:.4f} ms (of which sort+bounds {ms['sort']:.4f} ms), "
+        f"direct kernel {ms['direct']:.4f} ms, plain index_add_ {ms['plain']:.4f} ms; "
+        f"median of {REPS} [{label}]",
+        flush=True,
+    )
+    del counts, d_idx
+    torch.cuda.empty_cache()
+    return ms
+
+
 def _sha256(path: Path) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as fh:
@@ -255,7 +300,8 @@ def _decision(log: str) -> str:
 
 def main_path(label: str, wd: Path, gfa: Path, gaf: Path) -> tuple:
     """Run the device augment with ``PANTAS_SCATTER`` unset; return (its
-    sorted-kernel launches, the native engine's sha256)."""
+    sorted-kernel launches, the native engine's sha256, the device GFA,
+    which the caller deletes after phase 6 has called events on it)."""
     from pantas_tpu_torch import cli
 
     ref_out, dev_out = wd / "smoke_native.gfa", wd / "smoke_device.gfa"
@@ -279,9 +325,8 @@ def main_path(label: str, wd: Path, gfa: Path, gaf: Path) -> tuple:
         f"sha256 {dev_sha} == native engine's ({native_s:.3f} s) [{label}]",
         flush=True,
     )
-    for p in (ref_out, dev_out):
-        p.unlink()
-    return launches, ref_sha
+    ref_out.unlink()
+    return launches, ref_sha, dev_out
 
 
 def raw_race(label: str) -> dict:
@@ -347,6 +392,106 @@ def race_path(label: str, wd: Path, gfa: Path, gaf: Path, ref_sha: str) -> None:
     out.unlink()
 
 
+def _device_call(argv: list) -> tuple:
+    """``call --engine device`` through the port's CLI on the card, with
+    ``_eval_match`` wrapped to time each evaluation (copy to the card, match,
+    synchronise, read-back) and to note its candidates and table bytes.
+    ``EVALS`` is zeroed just before and read just after; every finder that
+    had candidates must have evaluated them all on ``cuda``, and none on
+    ``cpu``. Returns (per-finder record, wall seconds)."""
+    from pantas_tpu_torch import cli
+    from pantas_tpu_torch.events import batched
+
+    seen = {}
+    inner = batched._eval_match
+
+    def timed(match, tables, index_arrays, devices=None):
+        t0 = time.perf_counter()
+        hits = inner(match, tables, index_arrays, devices)
+        torch.cuda.synchronize()
+        rec = seen.setdefault(match.__name__.removeprefix("match_"),
+                              {"candidates": 0, "table_bytes": 0, "s": 0.0})
+        rec["candidates"] += len(index_arrays[0])
+        rec["table_bytes"] += sum(m.nbytes for m in tables) * len(devices)
+        rec["s"] += time.perf_counter() - t0
+        return hits
+
+    batched._eval_match = timed
+    try:
+        batched.EVALS.clear()
+        t0 = time.perf_counter()
+        rc = cli.main(["call", "--engine", "device", "--device", "cuda", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        evals = dict(batched.EVALS)
+    finally:
+        batched._eval_match = inner
+    if rc:
+        raise RuntimeError(f"call --engine device exited {rc}")
+    want = {(f, "cuda"): rec["candidates"] for f, rec in seen.items()}
+    if not seen or evals != want:
+        raise RuntimeError(f"device call evaluations {evals}, expected {want}")
+    return seen, wall
+
+
+def _sorted_rows(path: Path) -> list:
+    """The CSV's lines, sorted; the file is deleted."""
+    rows = sorted(path.read_text().splitlines())
+    path.unlink()
+    return rows
+
+
+def call_path(label: str, wd: Path, aug: Path) -> None:
+    """Phase 6: events on the device-augmented 10 Mbp GFA, host engine then
+    device engine through the port's CLI; then the micro fixtures with
+    ``--novel``, so that the novel finders run on the card too."""
+    from pantas_tpu_torch import cli
+
+    gtf = wd / "g.gtf"
+    host_csv, dev_csv = wd / "smoke_call_host.csv", wd / "smoke_call_device.csv"
+    t0 = time.perf_counter()
+    if cli.main(["call", "--rca", "0", str(aug), str(gtf), "-o", str(host_csv)]):
+        raise RuntimeError("host call failed")
+    host_s = time.perf_counter() - t0
+    seen, dev_s = _device_call(["--rca", "0", str(aug), str(gtf), "-o", str(dev_csv)])
+    host, dev = _sorted_rows(host_csv), _sorted_rows(dev_csv)
+    if dev != host:
+        raise RuntimeError(f"device call rows differ from the host caller's "
+                           f"({len(dev)} vs {len(host)} lines)")
+    events = [r for r in host if not r.startswith("event_type,")]
+    if len(events) < 5000:
+        raise RuntimeError(f"only {len(events)} events on the 10 Mbp graph")
+    by_type = dict(sorted(Counter(",".join(r.split(",")[:2]) for r in events).items()))
+    in_eval = sum(rec["s"] for rec in seen.values())
+    per_finder = {f: {"candidates": rec["candidates"], "table_bytes": rec["table_bytes"],
+                      "eval_s": round(rec["s"], 4)} for f, rec in seen.items()}
+    print(f"[call] call --rca 0 on the device-augmented 10 Mbp GFA: device engine "
+          f"{dev_s:.3f} s, host engine {host_s:.3f} s, rows equal; {len(events)} events "
+          f"{by_type}; inside _eval_match {in_eval:.3f} s ({100 * in_eval / dev_s:.1f}% of "
+          f"the device wall); per finder {json.dumps(per_finder)} [{label}]", flush=True)
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from fixtures_call import write_call_fixtures
+
+    novel = {}
+    with tempfile.TemporaryDirectory(dir=wd) as tmp:
+        for name, (gfa, gtf) in write_call_fixtures(Path(tmp)).items():
+            h, d = Path(tmp) / f"{name}_h.csv", Path(tmp) / f"{name}_d.csv"
+            flags = ["--rca", "0", "--novel", gfa, gtf]
+            if cli.main(["call", *flags, "-o", str(h)]):
+                raise RuntimeError(f"host call failed on the {name} fixture")
+            seen, _ = _device_call([*flags, "-o", str(d)])
+            if _sorted_rows(d) != _sorted_rows(h):
+                raise RuntimeError(f"device call rows differ from the host's on the {name} fixture")
+            for f, rec in seen.items():
+                novel[f] = novel.get(f, 0) + rec["candidates"]
+    missing = {"novel_es", "novel_ss_exonic", "novel_ce"} - set(novel)
+    if missing:
+        raise RuntimeError(f"the micro fixtures evaluated no {sorted(missing)} on the card")
+    print(f"[call] micro fixtures splice, cassette with --rca 0 --novel: rows equal to the "
+          f"host's; candidates on cuda {novel} [{label}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -372,10 +517,15 @@ def main() -> int:
 
     shapes = [kernel_vs_plain(25, 25, label), kernel_vs_plain(28, 28, label)]
     direct = [direct_vs_plain(25, 25, label), direct_vs_plain(28, 28, label)]
+    uniform_vs_plain(25, label)
     wd, gfa, gaf = _inputs()
-    launches, ref_sha = main_path(label, wd, gfa, gaf)
-    raw_launches = raw_race(label)
-    race_path(label, wd, gfa, gaf, ref_sha)
+    launches, ref_sha, aug = main_path(label, wd, gfa, gaf)
+    try:
+        raw_launches = raw_race(label)
+        race_path(label, wd, gfa, gaf, ref_sha)
+        call_path(label, wd, aug)
+    finally:
+        aug.unlink()
 
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     if jax_mods:

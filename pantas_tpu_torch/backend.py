@@ -7,6 +7,7 @@ CUDA where there is none is an error, not a quiet move to the CPU.
 from __future__ import annotations
 
 import subprocess
+import sys
 
 import torch
 
@@ -17,6 +18,25 @@ def device(name) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but torch.cuda.is_available() is False")
     return dev
+
+
+def devices(name, n: int = 1) -> list:
+    """The first ``n`` devices of type ``name`` for ``call --mesh n``:
+    ``min(n, device_count())`` cards for CUDA, and the one CPU device for
+    ``cpu``. When there are fewer than ``n`` it prints the JAX CLI's warning
+    and uses what there is; CUDA without a card raises."""
+    dev = device(name)
+    if dev.type == "cuda":
+        out = [torch.device("cuda", i) for i in range(min(n, torch.cuda.device_count()))]
+    else:
+        out = [dev]
+    if len(out) < n:
+        print(
+            f"[call] WARNING: --mesh {n} requested but only {len(out)} device(s) "
+            f"available; using a {len(out)}-device mesh",
+            file=sys.stderr,
+        )
+    return out
 
 
 def card_label() -> str:

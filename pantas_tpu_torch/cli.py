@@ -4,11 +4,12 @@ The subcommands are ``pantas_tpu``'s (see ``pantas_tpu/cli.py``). This CLI
 owns ``augment``: ``--engine device`` (native parse -> device scatter-add)
 and ``--engine device-py`` (Python tokenizer -> device) run the port on
 ``--device`` (``cuda`` by default, ``cpu`` for tests), and the host engines
-(``auto``, ``native``, ``host``) run ``pantas_tpu``'s own host code. Device
-paths that are not ported yet (``augment --mesh``, ``augment-dist``, ``call
---engine device``) exit non-zero and say so. Every other subcommand is
-``pantas_tpu.cli.main`` unchanged: those stages are host code on either
-backend.
+(``auto``, ``native``, ``host``) run ``pantas_tpu``'s own host code. It owns
+``call`` too: ``--engine device [--mesh N]`` runs the port's bitset finders
+on ``--device``, and ``--engine host`` the host caller. Device paths that are
+not ported yet (``augment --mesh``, ``augment-dist``) exit non-zero and say
+so. Every other subcommand is ``pantas_tpu.cli.main`` unchanged: those
+stages are host code on either backend.
 """
 
 from __future__ import annotations
@@ -113,12 +114,69 @@ def _cmd_augment_dist(argv):
 
 
 def _cmd_call(argv):
-    ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--engine", default="host")
-    known, _ = ap.parse_known_args(argv)
-    if known.engine == "device":
-        return _refuse("call --engine device")
-    return _tpu_cli._cmd_call(argv)
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch call")
+    ap.add_argument("GFA")
+    ap.add_argument("GTF")
+    ap.add_argument("--rca", "-w", dest="rca", type=int, default=-1)
+    ap.add_argument("--novel", "-n", dest="novel", action="store_true")
+    ap.add_argument("--no-annotated", "-a", dest="no_annotated", action="store_true")
+    ap.add_argument("--events", "-e", dest="events", nargs="+", default=["ES", "SS", "IR"])
+    ap.add_argument("--isw", "-i", dest="isw", type=int, default=5)
+    ap.add_argument("--minintronsize", "-l", dest="minintronsize", type=int, default=100)
+    ap.add_argument("--junction", dest="junction", type=str, default=None)
+    ap.add_argument("--debug", dest="debug", action="store_true")
+    # a documented no-op, as in pantas_tpu's call (its cli.py explains why)
+    ap.add_argument("--rc", dest="rc_compat", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument(
+        "--engine",
+        choices=["host", "device"],
+        default="host",
+        help="host: reference-exact enumerator; device: the six bitset finders "
+        "as torch ops on --device (same row multiset)",
+    )
+    ap.add_argument(
+        "--mesh", type=int, default=None,
+        help="device engine: shard the candidate axis over N cards (same "
+        "rows for any N)",
+    )
+    ap.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="device of the device engine (default cuda; never falls back)",
+    )
+    ap.add_argument("-o", dest="out", default=None,
+                    help="output CSV (default stdout; .gz/.zst compresses)")
+    args = ap.parse_args(argv)
+    from pantas_tpu.events import CallOptions, call_events
+
+    events = []
+    for e in args.events:
+        events.extend(e.split(","))
+    opts = CallOptions(
+        rca=args.rca,
+        novel=args.novel,
+        no_annotated=args.no_annotated,
+        events=events,
+        isw=args.isw,
+        minintronsize=args.minintronsize,
+        junction=args.junction,
+        debug=args.debug,
+    )
+    if args.engine == "device":
+        import functools
+
+        from pantas_tpu_torch import backend
+        from pantas_tpu_torch.events import call_events_device
+
+        # before the output is opened
+        devices = backend.devices(args.device, args.mesh or 1)
+        call_fn = functools.partial(call_events_device, devices=devices)
+    else:
+        call_fn = call_events
+    with _tpu_cli._stage_out(args.out) as out:
+        for row in call_fn(args.GFA, args.GTF, opts):
+            print(row, file=out)
+    return 0
 
 
 _OWN = {

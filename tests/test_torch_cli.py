@@ -40,9 +40,8 @@ def test_device_augment_cli_matches_host_engine(tmp_path, engine):
         ["augment", "--mesh", "2", "--engine", "device", "x.gaf", "x.gfa"],
         ["augment-dist", "x.gaf", "x.gfa", "-o", "o", "--coordinator", "h:1",
          "--nprocs", "2", "--procid", "0"],
-        ["call", "--engine", "device", "x.gfa", "x.gtf"],
     ],
-    ids=["augment-mesh", "augment-dist", "call-device"],
+    ids=["augment-mesh", "augment-dist"],
 )
 def test_unported_device_paths_refuse(argv, capsys):
     assert cli.main(argv) != 0
