@@ -12,9 +12,10 @@ Run from the root of a checkout, on a machine with a CUDA card:
    batch of 2^20 indices. The kernel must equal ``index_add_`` exactly;
    median times over 25 warm calls each, by CUDA events. This phase holds
    the sorted kernel (kernel #1), then the direct kernel (kernel #2) on the
-   same seeded batches. Then both kernels, the sorted wrapper's sort +
-   bounds and ``index_add_`` once more at 2^25 on 2^20 uniform indices in
-   [-1, n), which hold no long run.
+   same seeded batches. Then both kernels, the sorted kernel's window
+   partition alone (``kernels.window_partition``) and ``index_add_`` once
+   more at 2^25 and 2^28 on 2^20 uniform indices in [-1, n), which hold no
+   long run, and at 2^25 on a batch whose 2^20 indices all name one slot.
 3. Main path end to end: the 10 Mbp synthetic pangenome and 1M reads of
    ``scripts/bench_call_scale.py`` (cached under ``.bench/``), augmented by
    ``augment --engine device`` through the port's CLI with ``PANTAS_SCATTER``
@@ -39,6 +40,10 @@ Run from the root of a checkout, on a machine with a CUDA card:
    the micro fixtures of ``tests/fixtures_call.py`` then run with ``--rca 0
    --novel`` on both engines: equal rows, and the novel ES, novel exonic SS
    and CE finders evaluated on ``cuda``.
+7. ``torch.profiler`` splits the sorted kernel's device time by pass (the
+   partition's count, scan and scatter, then the histogram) on the uniform
+   and the one-slot batch at 2^25 and 2^28. It runs last: launches after a
+   profiled window were slower in the same process.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -124,7 +129,7 @@ def kernel_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
     ms = _timed_ms({
         "kernel": lambda: kernels.sorted_coverage_scatter_add(k_counts, d_idx),
         "plain": lambda: scatter_add_counts(p_counts, d_idx),
-        "sort": lambda: kernels.sorted_window_bounds(d_idx, n),
+        "partition": lambda: kernels.window_partition(d_idx, n),
     })
     torch.cuda.synchronize()
     # both received the same batches the same number of times
@@ -132,7 +137,7 @@ def kernel_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
         raise RuntimeError(f"kernel != plain after the timed calls at 2^{log2_slots}")
     print(
         f"[kernel] 2^{log2_slots} slots, 2^20 indices: equal, max_abs_err {err}; "
-        f"kernel {ms['kernel']:.4f} ms (of which sort+bounds {ms['sort']:.4f} ms), "
+        f"kernel {ms['kernel']:.4f} ms (its window partition alone {ms['partition']:.4f} ms), "
         f"plain index_add_ {ms['plain']:.4f} ms; median of {REPS} [{label}]",
         flush=True,
     )
@@ -177,38 +182,92 @@ def direct_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
     return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
 
 
-def uniform_vs_plain(log2_slots: int, label: str) -> dict:
-    """Both kernels, the sorted wrapper's sort + bounds and ``index_add_`` on
-    2^20 uniform indices in [-1, n): a batch with no long run, unlike the
-    smoke batch above. All three scatters must end equal."""
+def _batch_vs_plain(n: int, d_idx, what: str, label: str) -> dict:
+    """Both kernels, the sorted kernel's window partition alone and
+    ``index_add_`` on one batch, on zeroed counts; all three scatters must
+    end equal."""
     from pantas_tpu_torch.coverage import kernels
     from pantas_tpu_torch.parallel.mesh import scatter_add_counts
 
-    n = 1 << log2_slots
-    rng = np.random.default_rng(log2_slots + 1)
-    d_idx = torch.from_numpy(rng.integers(-1, n, size=BATCH, dtype=np.int32)).cuda()
     counts = {k: torch.zeros(n, dtype=torch.int32, device="cuda") for k in ("sorted", "direct", "plain")}
     ms = _timed_ms({
         "sorted": lambda: kernels.sorted_coverage_scatter_add(counts["sorted"], d_idx),
-        "sort": lambda: kernels.sorted_window_bounds(d_idx, n),
+        "partition": lambda: kernels.window_partition(d_idx, n),
         "direct": lambda: kernels.coverage_scatter_add(counts["direct"], d_idx),
         "plain": lambda: scatter_add_counts(counts["plain"], d_idx),
     })
     torch.cuda.synchronize()
     # each scatter ran the same batch WARM + REPS times
     err = max(int((counts[k] - counts["plain"]).abs().max()) for k in ("sorted", "direct"))
-    if err:
-        raise RuntimeError(f"kernels != index_add_ on uniform indices (max abs err {err})")
+    if err or int(counts["plain"].sum()) != (WARM + REPS) * int((d_idx >= 0).sum()):
+        raise RuntimeError(f"kernels != index_add_ on {what} (max abs err {err})")
     print(
-        f"[uniform] 2^{log2_slots} slots, 2^20 uniform indices in [-1, n): equal, max_abs_err 0; "
-        f"sorted kernel {ms['sorted']:.4f} ms (of which sort+bounds {ms['sort']:.4f} ms), "
+        f"[{what}] 2^{n.bit_length() - 1} slots, 2^20 indices: equal, max_abs_err 0; "
+        f"sorted kernel {ms['sorted']:.4f} ms (its window partition alone {ms['partition']:.4f} ms), "
         f"direct kernel {ms['direct']:.4f} ms, plain index_add_ {ms['plain']:.4f} ms; "
         f"median of {REPS} [{label}]",
         flush=True,
     )
-    del counts, d_idx
+    del counts
     torch.cuda.empty_cache()
     return ms
+
+
+def uniform_vs_plain(log2_slots: int, label: str) -> dict:
+    """``_batch_vs_plain`` on 2^20 uniform indices in [-1, n): a batch with
+    no long run, unlike the smoke batch."""
+    n = 1 << log2_slots
+    rng = np.random.default_rng(log2_slots + 1)
+    d_idx = torch.from_numpy(rng.integers(-1, n, size=BATCH, dtype=np.int32)).cuda()
+    return _batch_vs_plain(n, d_idx, "uniform", label)
+
+
+def one_slot_vs_plain(log2_slots: int, label: str) -> dict:
+    """``_batch_vs_plain`` on 2^20 indices that all name one slot: the
+    heaviest window there is."""
+    n = 1 << log2_slots
+    d_idx = torch.full((BATCH,), n // 3, dtype=torch.int32, device="cuda")
+    return _batch_vs_plain(n, d_idx, "one-slot", label)
+
+
+def profile_split(log2_slots: int, label: str) -> dict:
+    """Device microseconds per call of each pass of the sorted kernel, by
+    ``torch.profiler``, on the uniform and the one-slot batch; ``None`` for
+    a batch where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pantas_tpu_torch.coverage import kernels
+
+    n, calls = 1 << log2_slots, 10
+    rng = np.random.default_rng(log2_slots + 1)
+    batches = {
+        "uniform": torch.from_numpy(rng.integers(-1, n, size=BATCH, dtype=np.int32)).cuda(),
+        "one-slot": torch.full((BATCH,), n // 3, dtype=torch.int32, device="cuda"),
+    }
+    counts = torch.zeros(n, dtype=torch.int32, device="cuda")
+    out = {}
+    for what, d_idx in batches.items():
+        for _ in range(WARM):
+            kernels.sorted_coverage_scatter_add(counts, d_idx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                kernels.sorted_coverage_scatter_add(counts, d_idx)
+            torch.cuda.synchronize()
+        split = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0)
+            for part in ("window_count", "window_scan", "window_scatter", "window_histogram"):
+                if part in ev.key and dev_us:
+                    split[part] = split.get(part, 0.0) + dev_us / calls
+        out[what] = {k: round(v, 1) for k, v in split.items()} or None
+    print(f"[profile] sorted kernel, device us per call by pass, 2^{log2_slots} slots, 2^20 "
+          f"indices, {calls} calls: {json.dumps(out)} [{label}]", flush=True)
+    del counts, batches
+    torch.cuda.empty_cache()
+    return out
 
 
 def _sha256(path: Path) -> str:
@@ -508,9 +567,12 @@ def main() -> int:
     t0 = time.perf_counter()
     cached = _build.library_path().exists()
     lib = _build.build()
-    _build.load()
+    grid = _build.load().coverage_histogram_grid(torch.cuda.current_device())
+    if grid <= 0:
+        raise RuntimeError(f"coverage_histogram_grid failed ({grid})")
     print(f"[build] {lib.relative_to(REPO)} in {time.perf_counter() - t0:.2f} s"
-          f"{' (already built)' if cached else ''}", flush=True)
+          f"{' (already built)' if cached else ''}; persistent histogram grid {grid} CTAs "
+          f"on {torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
     ptxas = lib.with_suffix(".log")
     if ptxas.exists():
         print(ptxas.read_text().strip(), flush=True)
@@ -518,6 +580,8 @@ def main() -> int:
     shapes = [kernel_vs_plain(25, 25, label), kernel_vs_plain(28, 28, label)]
     direct = [direct_vs_plain(25, 25, label), direct_vs_plain(28, 28, label)]
     uniform_vs_plain(25, label)
+    uniform_vs_plain(28, label)
+    one_slot_vs_plain(25, label)
     wd, gfa, gaf = _inputs()
     launches, ref_sha, aug = main_path(label, wd, gfa, gaf)
     try:
@@ -526,6 +590,8 @@ def main() -> int:
         call_path(label, wd, aug)
     finally:
         aug.unlink()
+    profile_split(25, label)
+    profile_split(28, label)
 
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     if jax_mods:

@@ -1,6 +1,7 @@
 """Build the port's CUDA sources into one shared library and bind it.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links the objects into one library in
 ``build/kernels/`` at the root of the checkout, once per content hash of the
 sources and flags; the library has a plain C interface and is loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
@@ -19,9 +20,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory per kernel, kept in the .log
 ]
 
@@ -52,15 +53,33 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    objs = tmp.with_suffix(".d")
+    objs.mkdir(parents=True, exist_ok=True)
+    try:
+        jobs = [
+            (src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs / f"{src.stem}.o"), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+            for src in sorted(CSRC.glob("*.cu"))
+        ]
+        logs = [(src, proc.communicate()[0], proc.returncode) for src, proc in jobs]
+        bad = [f"{src.name} ({rc}):\n{log[-4000:]}" for src, log, rc in logs if rc]
+        if bad:
+            raise RuntimeError("nvcc failed on " + "\n".join(bad))
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp), *(str(objs / f"{src.stem}.o") for src, _, _ in logs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
+        out.with_suffix(".log").write_text("".join(log for _, log, _ in logs))
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+        shutil.rmtree(objs, ignore_errors=True)
     return out
 
 
@@ -70,14 +89,19 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp = ctypes.c_void_p
-        lib.coverage_scatter_window.argtypes = []
-        lib.coverage_scatter_window.restype = ctypes.c_int
-        lib.coverage_scatter_error_string.argtypes = [ctypes.c_int]
+        i32, i64 = ctypes.c_int, ctypes.c_int64
+        for name in ("coverage_scatter_window", "coverage_scatter_chunk",
+                     "coverage_partition_cap", "coverage_direct_block"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
+        lib.coverage_scatter_error_string.argtypes = [i32]
         lib.coverage_scatter_error_string.restype = ctypes.c_char_p
-        lib.coverage_scatter_sorted.argtypes = [vp, ctypes.c_int64, vp, vp, ctypes.c_int, vp]
-        lib.coverage_scatter_sorted.restype = ctypes.c_int
-        lib.coverage_direct_block.argtypes = []
-        lib.coverage_direct_block.restype = ctypes.c_int
+        lib.coverage_histogram_grid.argtypes = [i32]
+        lib.coverage_histogram_grid.restype = i32
+        lib.coverage_window_partition.argtypes = [i32, vp, i64, i32, i32, vp, vp, vp, vp, vp]
+        lib.coverage_window_partition.restype = i32
+        lib.coverage_scatter_sorted.argtypes = [i32, vp, i64, vp, i64, i32, *[vp] * 7]
+        lib.coverage_scatter_sorted.restype = i32
         lib.coverage_scatter_direct.argtypes = [vp, ctypes.c_int64, vp, ctypes.c_int64, vp]
         lib.coverage_scatter_direct.restype = ctypes.c_int
         _lib = lib

@@ -32,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from pantas_tpu_torch.coverage import kernels
+from pantas_tpu_torch.coverage import _build, kernels
 from pantas_tpu_torch.parallel.mesh import scatter_add_counts
 
 SCATTER_IMPLS = {
@@ -56,13 +56,17 @@ def _verdict_file() -> str:
 
 
 def _backend_key(n_slots: int, batch: int, device) -> str:
-    """``<backend>:<device name>:<pow2 bucket of n_slots>:<batch>``."""
+    """``<backend>:<device name>:<pow2 bucket of n_slots>:<batch>``, and on
+    CUDA ``:<kernel library hash>`` after it: a verdict measured with other
+    kernel sources must not decide for these."""
     dev = torch.device(device)
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
     bucket = 1
     while bucket < n_slots:
         bucket <<= 1
-    return f"{dev.type}:{name}:{bucket}:{batch}"
+    if dev.type != "cuda":
+        return f"{dev.type}:{dev.type}:{bucket}:{batch}"
+    lib_hash = _build.library_path().stem.rsplit("_", 1)[1]
+    return f"cuda:{torch.cuda.get_device_name(dev)}:{bucket}:{batch}:{lib_hash}"
 
 
 def _decide(stats: dict, batches_hint) -> str:
@@ -88,8 +92,8 @@ def _sync(device: torch.device) -> None:
 
 def _timed_step(fn, counts, idx, device) -> float:
     """Host seconds of one step, launch cost included: the JAX race's real
-    dispatch path view (CUDA events alone would hide the sort's and the
-    ctypes call's host time)."""
+    dispatch path view (CUDA events alone would hide the wrapper's
+    allocation and the ctypes call's host time)."""
     t0 = time.perf_counter()
     fn(counts, idx)
     _sync(device)
@@ -163,7 +167,8 @@ def pick_scatter_endtoend(
     step adds into the previous step's counts, as the stage does) and
     interleaved trials so drift hits both candidates. The stats (first-call
     seconds and step times) persist in :func:`_verdict_file` under
-    :func:`_backend_key` ``+ ":v2"``; a later call decides from them by
+    :func:`_backend_key` ``+ ":v2"`` (on CUDA the key holds the kernel
+    library's content hash); a later call decides from them by
     :func:`_decide` unless ``force_race`` is set, or the cached verdict holds
     only ``plain`` from a race that skipped exploration and this stage is big
     enough to explore.
@@ -199,6 +204,15 @@ def pick_scatter_endtoend(
             name = _decide(stats, batches_hint)
             return name, SCATTER_IMPLS[name]
 
+    verdict[key] = _race(n_slots, batch, sample, trials, force_race, batches_hint, device)
+    _save_verdict(vf, verdict)
+    name = verdict[key]["impl"]
+    return name, SCATTER_IMPLS[name]
+
+
+def _race(n_slots, batch, sample, trials, force_race, batches_hint, device) -> dict:
+    """Measure the candidates as :func:`pick_scatter_endtoend` says; return
+    the verdict entry, its decision under ``impl``."""
     rng = np.random.default_rng(0)
     if sample is not None and len(sample):
         idx_np = np.asarray(sample, dtype=np.int32)
@@ -233,9 +247,8 @@ def pick_scatter_endtoend(
             for st in stats.values():
                 st["times"].append(_timed_step(st["fn"], st["counts"], idx, device))
 
-    name = _decide(stats, batches_hint)
-    verdict[key] = {
-        "impl": name,  # decision at race time (informational)
+    return {
+        "impl": _decide(stats, batches_hint),  # decision at race time
         # whether cuda-sorted was ATTEMPTED: without it every later big-stage
         # call would re-race
         "explored": explore,
@@ -250,8 +263,6 @@ def pick_scatter_endtoend(
         },
         "trials": trials,
     }
-    _save_verdict(vf, verdict)
-    return name, SCATTER_IMPLS[name]
 
 
 def raw_race(n_slots: int, stream: int, device, reps: int = 3, seed: int = 0) -> dict:

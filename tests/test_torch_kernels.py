@@ -3,9 +3,9 @@
 The same seeded numpy inputs go through
 ``pantas_tpu.coverage.pallas_kernel.sorted_coverage_scatter_add`` (the Pallas
 TPU kernel, in interpret mode on the CPU), its XLA scatter, and the port's
-``sorted_coverage_scatter_add`` (its plain version on the CPU, which shares
-the kernel wrapper's sort and window bounds), ``coverage_scatter_add`` (the
-direct kernel's plain version on the CPU) and ``scatter_add_counts``.
+``sorted_coverage_scatter_add`` (its plain version on the CPU: the plain
+window partition, then a ``bincount`` per window), ``coverage_scatter_add``
+(the direct kernel's plain version on the CPU) and ``scatter_add_counts``.
 Integer adds are exact in any order, so every comparison is equality. The
 direct kernel against its Pallas counterpart in interpret mode is in
 ``test_torch_direct_interpret.py``.
@@ -49,6 +49,17 @@ def _case(name):
     elif name == "below-one-window":
         n = 1000
         idx = rng.integers(-1, n, size=2048, dtype=np.int32)
+    elif name == "heavy-window":
+        n = 1 << 17  # 8 windows; 3/4 of the batch spread over window 3's slots
+        idx = rng.integers(-1, n, size=8192, dtype=np.int32)
+        heavy = rng.random(8192) < 0.75
+        idx[heavy] = rng.integers(3 * 16384, 4 * 16384, size=int(heavy.sum()), dtype=np.int32)
+    elif name == "negatives":
+        n = 40000  # every negative index is dropped, not only the -1 padding
+        idx = rng.integers(-1, n, size=4096, dtype=np.int32)
+        idx[::5] = -2
+        idx[1::7] = -7
+        idx[2::11] = np.iinfo(np.int32).min
     else:
         raise KeyError(name)
     counts = rng.integers(0, 5, size=n, dtype=np.int32)
@@ -56,7 +67,8 @@ def _case(name):
 
 
 CASES = ["mix-5000x4096", "mix-40000x8192", "mix-131072x16384",
-         "all-padding", "last-slot", "all-equal", "below-one-window"]
+         "all-padding", "last-slot", "all-equal", "below-one-window",
+         "heavy-window", "negatives"]
 
 
 def _expected(counts, idx):
@@ -106,14 +118,20 @@ def test_direct_scatter_refuses_batches_off_the_block_in_both_packages():
 
 
 def test_direct_scatter_in_place_drops_padding_and_slots_past_n():
-    """Slots at or past ``n`` are dropped, as the sorted kernel masks at n."""
+    """Slots at or past ``n`` are dropped, as the sorted kernel masks at n;
+    the sorted path's partition already drops slots at or past
+    ``n_windows * WINDOW`` (here 16384 and up)."""
     counts = torch.zeros(16, dtype=torch.int32)
     idx = torch.full((kernels.BLOCK,), -1, dtype=torch.int32)
-    idx[:5] = torch.tensor([3, 3, 0, 16, 1 << 20], dtype=torch.int32)
+    idx[:7] = torch.tensor([3, 3, 0, 16, 1 << 20, kernels.WINDOW, kernels.INT32_MAX],
+                           dtype=torch.int32)
     assert kernels.coverage_scatter_add(counts, idx) is counts
     assert counts[3] == 2 and counts[0] == 1 and int(counts.sum()) == 3
     sorted_counts = kernels.sorted_coverage_scatter_add(torch.zeros(16, dtype=torch.int32), idx)
     assert torch.equal(sorted_counts, counts)
+    bucketed, bounds = kernels.window_partition(idx, 16)
+    assert bounds.tolist() == [0, 4]
+    assert sorted(bucketed[:4].tolist()) == [0, 3, 3, 16]
 
 
 def test_scatter_updates_in_place_and_drops_padding():
@@ -125,17 +143,29 @@ def test_scatter_updates_in_place_and_drops_padding():
     assert scatter_add_counts(counts, idx) is counts and int(counts.sum()) == 6
 
 
-def test_window_bounds_partition_the_sorted_stream():
-    """bounds[c] .. bounds[c+1] holds exactly the slots of window c; the
-    padding lies before bounds[0]."""
-    counts, idx = _case("last-slot")
-    s, bounds = kernels.sorted_window_bounds(torch.from_numpy(idx), len(counts))
-    s, bounds = s.numpy(), bounds.numpy()
-    assert bounds.dtype == np.int32 and len(bounds) == -(-len(counts) // kernels.WINDOW) + 1
-    assert bounds[0] == np.count_nonzero(idx < 0) and bounds[-1] == len(idx)
-    for c in range(len(bounds) - 1):
-        seg = s[bounds[c] : bounds[c + 1]]
-        assert ((seg // kernels.WINDOW) == c).all()
+def _segments(bucketed, bounds):
+    """Each window's segment of the partitioned stream, sorted."""
+    return [np.sort(bucketed[bounds[c] : bounds[c + 1]]) for c in range(len(bounds) - 1)]
+
+
+def _kept_by_window(idx, n):
+    n_windows = -(-n // kernels.WINDOW)
+    kept = idx[(idx >= 0) & (idx < n_windows * kernels.WINDOW)]
+    return kept, [np.sort(kept[kept // kernels.WINDOW == c]) for c in range(n_windows)]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_window_partition_contract(case):
+    """bounds[c] .. bounds[c+1] holds exactly the multiset of kept slots of
+    window c; bounds[0] == 0 and bounds[-1] is the number kept."""
+    counts, idx = _case(case)
+    bucketed, bounds = kernels.window_partition(torch.from_numpy(idx), len(counts))
+    bucketed, bounds = bucketed.numpy(), bounds.numpy()
+    kept, want = _kept_by_window(idx, len(counts))
+    assert bounds.dtype == np.int32 and len(bounds) == len(want) + 1
+    assert len(bucketed) == len(idx)
+    assert bounds[0] == 0 and bounds[-1] == len(kept)
+    assert all(np.array_equal(got, w) for got, w in zip(_segments(bucketed, bounds), want))
 
 
 @pytest.mark.parametrize(
@@ -164,6 +194,14 @@ def cuda():
     return torch.device("cuda")
 
 
+def _sorted_once(counts, idx):
+    """The sorted kernel once, checking that it counted exactly one launch."""
+    before = kernels.LAUNCHES["sorted_coverage_scatter_add"]
+    kernels.sorted_coverage_scatter_add(counts, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sorted_coverage_scatter_add"] == before + 1
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain(cuda):
     for case in CASES:
@@ -171,13 +209,74 @@ def test_cuda_kernel_matches_plain(cuda):
         d_idx = torch.from_numpy(idx).to(cuda)
         got = torch.from_numpy(counts).to(cuda)
         want = got.clone()
-        before = kernels.LAUNCHES["sorted_coverage_scatter_add"]
-        kernels.sorted_coverage_scatter_add(got, d_idx)
+        _sorted_once(got, d_idx)
         scatter_add_counts(want, d_idx)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES["sorted_coverage_scatter_add"] == before + 1
         assert torch.equal(got, want), case
         assert np.array_equal(got.cpu().numpy(), _expected(counts, idx)), case
+
+
+@pytest.mark.cuda
+def test_cuda_window_partition_matches_plain(cuda):
+    """The CUDA partition equals its plain version window by window, as
+    sorted segments (the order inside a window is free)."""
+    for case in CASES:
+        counts, idx = _case(case)
+        d_idx = torch.from_numpy(idx).to(cuda)
+        before = dict(kernels.LAUNCHES)
+        got_b, got_bounds = kernels.window_partition(d_idx, len(counts))
+        want_b, want_bounds = kernels.window_partition_plain(d_idx, len(counts))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == before, case
+        got_bounds, want_bounds = got_bounds.cpu().numpy(), want_bounds.cpu().numpy()
+        assert np.array_equal(got_bounds, want_bounds), case
+        got, want = _segments(got_b.cpu().numpy(), got_bounds), _segments(want_b.cpu().numpy(), want_bounds)
+        assert all(np.array_equal(g, w) for g, w in zip(got, want)), case
+
+
+@pytest.mark.cuda
+def test_cuda_heavy_window_spans_ctas(cuda):
+    """One window holds 2^18 entries, 128 work items of CHUNK: they run on
+    many CTAs at once and add into the same slots; exact against
+    index_add_. A second batch puts 2^18 entries on one slot."""
+    rng = np.random.default_rng(18)
+    n = 1 << 20
+    idx = rng.integers(-1, n, size=1 << 19, dtype=np.int32)
+    idx[: 1 << 18] = rng.integers(5 * kernels.WINDOW, 6 * kernels.WINDOW, size=1 << 18)
+    assert (1 << 18) > 64 * kernels.CHUNK
+    for batch in (idx, np.where(np.arange(len(idx)) % 2 == 0, 5 * kernels.WINDOW + 7, idx)):
+        d_idx = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.int32)).to(cuda)
+        got = torch.zeros(n, dtype=torch.int32, device=cuda)
+        want = got.clone()
+        _sorted_once(got, d_idx)
+        scatter_add_counts(want, d_idx)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_count_pass_above_the_shared_cap(cuda):
+    """More windows than the shared window-id histogram holds: the count and
+    scatter passes take their global-atomic path; exact against index_add_,
+    partition equal to its plain version."""
+    n = (kernels.PARTITION_CAP + 3) * kernels.WINDOW - 5  # ragged last window
+    free, _ = torch.cuda.mem_get_info(cuda)
+    if free < 3 * 4 * n:
+        pytest.skip(f"needs {3 * 4 * n} B free on the card, has {free}")
+    rng = np.random.default_rng(29)
+    idx = rng.integers(-3, n + 10, size=1 << 20, dtype=np.int32)
+    idx[:4096] = n - 1
+    d_idx = torch.from_numpy(idx).to(cuda)
+    got = torch.zeros(n, dtype=torch.int32, device=cuda)
+    want = got.clone()
+    _sorted_once(got, d_idx)
+    scatter_add_counts(want, torch.where(d_idx < n, d_idx, -1))
+    assert torch.equal(got, want)
+    del got, want
+    got_b, got_bounds = kernels.window_partition(d_idx, n)
+    want_b, want_bounds = kernels.window_partition_plain(d_idx, n)
+    got_bounds, want_bounds = got_bounds.cpu().numpy(), want_bounds.cpu().numpy()
+    assert np.array_equal(got_bounds, want_bounds)
+    got, want = _segments(got_b.cpu().numpy(), got_bounds), _segments(want_b.cpu().numpy(), want_bounds)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda

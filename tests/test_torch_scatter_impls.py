@@ -13,6 +13,7 @@ Every counts comparison is exact equality (integer adds).
 import io
 import json
 import random
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -72,6 +73,39 @@ def test_verdict_file_and_key(tmp_path, monkeypatch):
     assert si._verdict_file() == str(tmp_path / "c" / "scatter_verdict.json")
     assert si._backend_key(5000, 256, "cpu") == "cpu:cpu:8192:256"
     assert si._backend_key(1 << 12, 1 << 20, CPU) == "cpu:cpu:4096:1048576"
+
+
+def test_a_verdict_of_other_kernel_sources_is_not_used(cache, monkeypatch):
+    """On CUDA the key holds the kernel library's content hash: a verdict
+    cached under the same hash decides without a race; one cached under
+    another hash (an older kernel's) is not used, and the new race is cached
+    beside it. The race itself is replaced, so this runs without a card."""
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None: "Card")
+    monkeypatch.setattr(si._build, "library_path",
+                        lambda: Path("build/kernels/libpantas_kernels_00000000000000aa.so"))
+    old = si._backend_key(1 << 12, 256, "cuda") + ":v2"
+    assert old == "cuda:Card:4096:256:00000000000000aa:v2"
+    stats = {"plain": {"first_s": 0.0, "median_s": 1.0, "times": [1.0]},
+             "cuda-sorted": {"first_s": 0.0, "median_s": 0.001, "times": [0.001]}}
+    cache.parent.mkdir(parents=True)
+    cache.write_text(json.dumps({old: {"impl": "cuda-sorted", "explored": True,
+                                       "batches_hint": 8, "trials": 5, "stats": stats}}))
+    raced = []
+
+    def race(*args):
+        raced.append(args)
+        return {"impl": "plain", "explored": True, "batches_hint": 8, "trials": 5,
+                "stats": {"plain": stats["plain"]}}
+
+    monkeypatch.setattr(si, "_race", race)
+    name, _ = si.pick_scatter_endtoend(1 << 12, 256, batches_hint=8, device="cuda")
+    assert name == "cuda-sorted" and not raced
+
+    monkeypatch.setattr(si._build, "library_path",
+                        lambda: Path("build/kernels/libpantas_kernels_00000000000000bb.so"))
+    name, fn = si.pick_scatter_endtoend(1 << 12, 256, batches_hint=8, device="cuda")
+    assert name == "plain" and fn is si.SCATTER_IMPLS["plain"] and len(raced) == 1
+    assert set(json.loads(cache.read_text())) == {old, old.replace(":00000000000000aa:", ":00000000000000bb:")}
 
 
 def test_pick_scatter_endtoend_persists_verdict(cache, monkeypatch):
