@@ -6,18 +6,24 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 1. Card: its name and power limit; build the hand-written kernels from
-   ``pantas_tpu_torch/csrc`` (nvcc, sm_90a) and time the build.
+   ``pantas_tpu_torch/csrc`` (nvcc, sm_90a) into ``build/kernels/`` and the
+   port's host C++ (the native GAF engine and the GFA loader extension, g++)
+   into ``build/native/``, and time the builds.
 2. Kernel vs plain at the main path's shapes: 2^25 count slots (a 10 Mbp
    graph's bucket) and 2^28 (genome scale, 1 GiB of counts), each with a
    batch of 2^20 indices. The kernel must equal ``index_add_`` exactly;
-   median times over 25 warm calls each, by CUDA events. This phase holds
+   median times over 25 warm calls each, by CUDA events, beside one bare
+   ``index_add_`` call on prepared indices (the library yardstick, used
+   nowhere in the port) and the kernel's bound from this batch's bytes. This
+   phase holds
    the sorted kernel (kernel #1), then the direct kernel (kernel #2) on the
    same seeded batches. Then both kernels, the sorted kernel's window
    partition alone (``kernels.window_partition``) and ``index_add_`` once
    more at 2^25 and 2^28 on 2^20 uniform indices in [-1, n), which hold no
    long run, and at 2^25 on a batch whose 2^20 indices all name one slot.
 3. Main path end to end: the 10 Mbp synthetic pangenome and 1M reads of
-   ``scripts/bench_call_scale.py`` (cached under ``.bench/``), augmented by
+   ``pantas_tpu_torch.eval.synth`` (built by the port's own ``build`` stage,
+   cached under ``.bench/``; its sha256 is printed), augmented by
    ``augment --engine device`` through the port's CLI with ``PANTAS_SCATTER``
    unset. Its GFA must be sha256-identical to the native host engine's, its
    log must show the CUDA sorted scatter and no fallback, and the sorted
@@ -44,6 +50,16 @@ Run from the root of a checkout, on a machine with a CUDA card:
    partition's count, scan and scatter, then the histogram) on the uniform
    and the one-slot batch at 2^25 and 2^28. It runs last: launches after a
    profiled window were slower in the same process.
+
+8. The mesh at the same 10 Mbp / 1M-read cell: ``augment --engine device
+   --mesh 1`` and ``--mesh 1x1`` through the CLI, then through the Python
+   API a logical mesh of 4 and one of 2x2 on the one card (every shard's
+   private partial lives on it). Each GFA's sha256 must equal phase 3's, and
+   the sorted kernel's launches must equal shards x batches. A logical mesh
+   shows the sharding arithmetic on the card and measures nothing about
+   scaling.
+9. Isolation: no module named ``pantas_tpu``, ``pantas_tpu.*``, ``jax`` or
+   ``jax.*`` was loaded by anything above.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -72,6 +88,11 @@ N_READS = 1_000_000
 BATCH = 1 << 20
 REPS = 25
 WARM = 3
+# NVIDIA's data sheet for the H100 SXM: device memory rate, and the float32
+# rate outside the tensor cores, taken for the kernels' int32 adds
+HBM_BYTES_PER_S = 3.35e12
+PLAIN_OPS_PER_S = 67e12
+SECTOR_SLOTS = 8  # int32 counts in one 32-byte sector of device memory
 
 
 def _timed_ms(fns: dict) -> dict:
@@ -92,6 +113,27 @@ def _timed_ms(fns: dict) -> dict:
             b.synchronize()
             times[k].append(a.elapsed_time(b))
     return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _library_args(d_idx):
+    """What one bare ``index_add_`` call needs to compute a batch's sum: the
+    valid indices as int64 and as many ones (prepared outside the timing)."""
+    valid = d_idx[d_idx >= 0].long()
+    return valid, torch.ones(valid.numel(), dtype=torch.int32, device=d_idx.device)
+
+
+def _bound(d_idx) -> dict:
+    """The least time the card could take for ``counts[idx] += 1`` on this
+    batch: the larger of its bytes over the memory rate and its adds over
+    the plain arithmetic rate. Bytes: every index read once, and every
+    32-byte sector of ``counts`` that the batch names read once and written
+    once."""
+    valid = d_idx[d_idx >= 0]
+    sectors = int(torch.unique(valid // SECTOR_SLOTS).numel())
+    bytes_ms = (4 * d_idx.numel() + 2 * 32 * sectors) / HBM_BYTES_PER_S * 1e3
+    ops_ms = int(valid.numel()) / PLAIN_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def _seeded_batch(log2_slots: int, seed: int):
@@ -126,24 +168,31 @@ def kernel_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
     if err != 0 or not torch.equal(k_counts, p_counts):
         raise RuntimeError(f"kernel != plain at 2^{log2_slots} slots (max abs err {err})")
 
+    l_counts = k_counts.clone()
+    l_idx, l_ones = _library_args(d_idx)
     ms = _timed_ms({
         "kernel": lambda: kernels.sorted_coverage_scatter_add(k_counts, d_idx),
         "plain": lambda: scatter_add_counts(p_counts, d_idx),
         "partition": lambda: kernels.window_partition(d_idx, n),
+        "library": lambda: l_counts.index_add_(0, l_idx, l_ones),
     })
     torch.cuda.synchronize()
-    # both received the same batches the same number of times
-    if not torch.equal(k_counts, p_counts):
+    # all received the same batches the same number of times
+    if not (torch.equal(k_counts, p_counts) and torch.equal(l_counts, p_counts)):
         raise RuntimeError(f"kernel != plain after the timed calls at 2^{log2_slots}")
+    bound = _bound(d_idx)
     print(
         f"[kernel] 2^{log2_slots} slots, 2^20 indices: equal, max_abs_err {err}; "
         f"kernel {ms['kernel']:.4f} ms (its window partition alone {ms['partition']:.4f} ms), "
-        f"plain index_add_ {ms['plain']:.4f} ms; median of {REPS} [{label}]",
+        f"plain index_add_ {ms['plain']:.4f} ms, one bare index_add_ call "
+        f"{ms['library']:.4f} ms, bound {bound['bound_ms']:.5f} ms by {bound['bound_by']}; "
+        f"median of {REPS} [{label}]",
         flush=True,
     )
-    del k_counts, p_counts, d_idx
+    del k_counts, p_counts, l_counts, d_idx
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
+    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], **bound}
 
 
 def direct_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
@@ -164,22 +213,28 @@ def direct_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
     if err != 0 or not torch.equal(k_counts, p_counts):
         raise RuntimeError(f"direct kernel != plain at 2^{log2_slots} slots (max abs err {err})")
 
+    l_counts = k_counts.clone()
+    l_idx, l_ones = _library_args(d_idx)
     ms = _timed_ms({
         "kernel": lambda: kernels.coverage_scatter_add(k_counts, d_idx),
         "plain": lambda: kernels.coverage_scatter_add_plain(p_counts, d_idx),
+        "library": lambda: l_counts.index_add_(0, l_idx, l_ones),
     })
     torch.cuda.synchronize()
-    if not torch.equal(k_counts, p_counts):
+    if not (torch.equal(k_counts, p_counts) and torch.equal(l_counts, p_counts)):
         raise RuntimeError(f"direct kernel != plain after the timed calls at 2^{log2_slots}")
+    bound = _bound(d_idx)
     print(
         f"[direct] 2^{log2_slots} slots, 2^20 indices: equal, max_abs_err {err}; "
-        f"kernel {ms['kernel']:.4f} ms, plain masked index_add_ {ms['plain']:.4f} ms; "
-        f"median of {REPS} [{label}]",
+        f"kernel {ms['kernel']:.4f} ms, plain masked index_add_ {ms['plain']:.4f} ms, one "
+        f"bare index_add_ call {ms['library']:.4f} ms, bound {bound['bound_ms']:.5f} ms by "
+        f"{bound['bound_by']}; median of {REPS} [{label}]",
         flush=True,
     )
-    del k_counts, p_counts, d_idx
+    del k_counts, p_counts, l_counts, d_idx
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"]}
+    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], **bound}
 
 
 def _batch_vs_plain(n: int, d_idx, what: str, label: str) -> dict:
@@ -201,11 +256,12 @@ def _batch_vs_plain(n: int, d_idx, what: str, label: str) -> dict:
     err = max(int((counts[k] - counts["plain"]).abs().max()) for k in ("sorted", "direct"))
     if err or int(counts["plain"].sum()) != (WARM + REPS) * int((d_idx >= 0).sum()):
         raise RuntimeError(f"kernels != index_add_ on {what} (max abs err {err})")
+    bound = _bound(d_idx)
     print(
         f"[{what}] 2^{n.bit_length() - 1} slots, 2^20 indices: equal, max_abs_err 0; "
         f"sorted kernel {ms['sorted']:.4f} ms (its window partition alone {ms['partition']:.4f} ms), "
-        f"direct kernel {ms['direct']:.4f} ms, plain index_add_ {ms['plain']:.4f} ms; "
-        f"median of {REPS} [{label}]",
+        f"direct kernel {ms['direct']:.4f} ms, plain index_add_ {ms['plain']:.4f} ms, bound "
+        f"{bound['bound_ms']:.5f} ms by {bound['bound_by']}; median of {REPS} [{label}]",
         flush=True,
     )
     del counts
@@ -294,8 +350,7 @@ class _Tee(io.TextIOBase):
 
 def _inputs():
     """The 10 Mbp graph and 1M-read GAF (built once under ``.bench/``)."""
-    sys.path.insert(0, str(REPO / "scripts"))
-    from bench_call_scale import ensure_graph, synth_gaf
+    from pantas_tpu_torch.eval.synth import ensure_graph, synth_gaf
 
     t0 = time.perf_counter()
     wd = ensure_graph(10)
@@ -305,17 +360,23 @@ def _inputs():
         tmp = gaf.with_suffix(".tmp")
         synth_gaf(gfa, N_READS, tmp)
         os.replace(tmp, gaf)
-    print(f"[main] inputs ready in {time.perf_counter() - t0:.1f} s: {gfa.stat().st_size} B GFA, "
-          f"{gaf.stat().st_size} B GAF", flush=True)
+    print(f"[main] inputs ready in {time.perf_counter() - t0:.1f} s: {gfa.stat().st_size} B GFA "
+          f"(sha256 {_sha256(gfa)}), {gaf.stat().st_size} B GAF (sha256 {_sha256(gaf)})",
+          flush=True)
     return wd, gfa, gaf
 
 
-def _device_augment(gaf: Path, gfa: Path, out: Path, env: dict):
+def _device_augment(gaf: Path, gfa: Path, out: Path, env: dict, run=None):
     """``augment --engine device`` through the port's CLI under ``env``
-    (None unsets a variable); the launch counts are zeroed just before and
-    read just after. Returns (log, launches by kernel, seconds, batches)."""
+    (None unsets a variable), or ``run(out)`` in its place when given; the
+    launch counts are zeroed just before and read just after. Returns (log,
+    launches by kernel, seconds, batches)."""
     from pantas_tpu_torch import cli
     from pantas_tpu_torch.coverage import kernels
+
+    if run is None:
+        def run(out):
+            return cli.main(["augment", "--engine", "device", str(gaf), str(gfa), "-o", str(out)])
 
     saved = {k: os.environ.get(k) for k in env}
     for k, v in env.items():
@@ -328,7 +389,7 @@ def _device_augment(gaf: Path, gfa: Path, out: Path, env: dict):
         kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(_Tee(sys.stderr, captured)):
-            rc = cli.main(["augment", "--engine", "device", str(gaf), str(gfa), "-o", str(out)])
+            rc = run(out)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
@@ -449,6 +510,69 @@ def race_path(label: str, wd: Path, gfa: Path, gaf: Path, ref_sha: str) -> None:
               f"without a race, launches {counted} for {batches} batches, sha256 == native "
               f"engine's [{label}]", flush=True)
     out.unlink()
+
+
+def mesh_path(label: str, wd: Path, gfa: Path, gaf: Path, ref_sha: str) -> int:
+    """Phase 8: the mesh on the main path's cell. ``--mesh 1`` and ``--mesh
+    1x1`` through the CLI, then a logical mesh of 4 and of 2x2 on the one
+    card through the Python API. Returns the sorted kernel's launches summed
+    over the four runs."""
+    from pantas_tpu_torch import backend, cli
+    from pantas_tpu_torch.coverage.device import augment_gfa_device_native
+    from pantas_tpu_torch.parallel.mesh import coverage_mesh, coverage_mesh_2d
+
+    card = backend.device("cuda")
+    out = wd / "smoke_mesh.gfa"
+
+    def by_cli(spec):
+        return lambda out: cli.main(["augment", "--engine", "device", "--mesh", spec,
+                                     str(gaf), str(gfa), "-o", str(out)])
+
+    def by_api(mesh):
+        def run(out):
+            with open(out, "w") as fh:
+                augment_gfa_device_native(str(gaf), str(gfa), out=fh, mesh=mesh)
+            return 0
+        return run
+
+    runs = [
+        ("--mesh 1 (CLI)", 1, by_cli("1")),
+        ("--mesh 1x1 (CLI)", 1, by_cli("1x1")),
+        ("logical 4 on one card (API)", 4, by_api(coverage_mesh([card] * 4))),
+        ("logical 2x2 on one card (API)", 4, by_api(coverage_mesh_2d([card] * 4, 2, 2))),
+    ]
+    total = 0
+    for what, shards, run in runs:
+        log, counted, seconds, batches = _device_augment(
+            gaf, gfa, out, {"PANTAS_SCATTER": None}, run=run)
+        launches = counted["sorted_coverage_scatter_add"]
+        if not (launches == shards * batches >= 1) or counted["coverage_scatter_add"]:
+            raise RuntimeError(f"mesh {what}: {counted} launches for {batches} batches "
+                               f"on {shards} shards")
+        if "cuda-sorted on a" not in log:
+            raise RuntimeError(f"mesh {what}: the log does not show the CUDA scatter on a mesh")
+        sha = _sha256(out)
+        if sha != ref_sha:
+            raise RuntimeError(f"mesh {what}: GFA {sha} != native engine's {ref_sha}")
+        reduced = next(ln for ln in log.splitlines() if ln.startswith("[device] mesh "))
+        print(f"[mesh] {what}: {seconds:.3f} s, {batches} batches, {launches} kernel launches "
+              f"= {shards} shards x batches, {reduced.split(': ', 1)[1]}, sha256 == native "
+              f"engine's; a logical mesh shows the sharding arithmetic on the card and "
+              f"measures nothing about scaling [{label}]", flush=True)
+        total += launches
+    out.unlink()
+    return total
+
+
+def isolation() -> None:
+    """Phase 9: nothing of the JAX package, and no jax, was loaded."""
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("pantas_tpu", "jax"))
+    print(json.dumps({"phase": "isolation", "ok": not foreign,
+                      "foreign_modules": foreign[:10],
+                      "checked": ["pantas_tpu", "pantas_tpu.*", "jax", "jax.*"]}), flush=True)
+    if foreign:
+        raise RuntimeError(f"the port loaded modules it must not: {foreign[:10]}")
 
 
 def _device_call(argv: list) -> tuple:
@@ -576,6 +700,16 @@ def main() -> int:
     ptxas = lib.with_suffix(".log")
     if ptxas.exists():
         print(ptxas.read_text().strip(), flush=True)
+    from pantas_tpu_torch.native import gafcov, gfaload
+
+    t0 = time.perf_counter()
+    native = gafcov.build_library()
+    native_s = time.perf_counter() - t0
+    ext = gfaload.get_module()
+    loader = (Path(ext.__file__).relative_to(REPO) if ext is not None
+              else "not built: the pure-Python GFA loader is used")
+    print(f"[build] native engine {native.relative_to(REPO)} in {native_s:.2f} s; GFA loader "
+          f"extension {loader} in {time.perf_counter() - t0 - native_s:.2f} s", flush=True)
 
     shapes = [kernel_vs_plain(25, 25, label), kernel_vs_plain(28, 28, label)]
     direct = [direct_vs_plain(25, 25, label), direct_vs_plain(28, 28, label)]
@@ -588,24 +722,26 @@ def main() -> int:
         raw_launches = raw_race(label)
         race_path(label, wd, gfa, gaf, ref_sha)
         call_path(label, wd, aug)
+        mesh_launches = mesh_path(label, wd, gfa, gaf, ref_sha)
     finally:
         aug.unlink()
     profile_split(25, label)
     profile_split(28, label)
-
-    jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-    if jax_mods:
-        raise RuntimeError(f"the port loaded jax: {jax_mods[:5]}")
+    isolation()
 
     print(json.dumps({"kernels": [{
         "name": "sorted_coverage_scatter_add",
         "route": "cuda",
         "source": "pantas_tpu_torch/csrc/coverage_scatter.cu",
         "replaces": "pantas_tpu/coverage/pallas_kernel.py:129",
-        "launches": launches,
+        "launches": launches,  # the single-device main path (phase 3)
+        "mesh_launches": mesh_launches,  # phase 8's four runs together
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": shapes[0]["ms"],  # the main path's 2^25 bucket
         "plain_ms": shapes[0]["plain_ms"],
+        "bound_ms": shapes[0]["bound_ms"],
+        "bound_by": shapes[0]["bound_by"],
+        "library_ms": shapes[0]["library_ms"],
     }, {
         "name": "coverage_scatter_add",
         "route": "cuda",
@@ -615,6 +751,9 @@ def main() -> int:
         "max_abs_err": max(s["max_abs_err"] for s in direct),
         "ms": direct[0]["ms"],
         "plain_ms": direct[0]["plain_ms"],
+        "bound_ms": direct[0]["bound_ms"],
+        "bound_by": direct[0]["bound_by"],
+        "library_ms": direct[0]["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

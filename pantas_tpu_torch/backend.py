@@ -39,6 +39,29 @@ def devices(name, n: int = 1) -> list:
     return out
 
 
+def mesh_devices(name, n: int, strict: bool = False) -> list:
+    """``n`` devices of type ``name`` for ``augment --mesh``. CUDA: the first
+    ``n`` cards; when there are fewer, a warning and a smaller mesh, or with
+    ``strict`` (the ``DxK`` form, whose shape cannot shrink) an error that
+    names both counts. ``cpu``: the CPU device ``n`` times, a logical mesh
+    for tests and rehearsals. CUDA without a card raises."""
+    dev = device(name)
+    if dev.type != "cuda":
+        return [dev] * n
+    have = torch.cuda.device_count()
+    if have < n:
+        if strict:
+            raise RuntimeError(
+                f"the mesh needs {n} CUDA devices but only {have} are available"
+            )
+        print(
+            f"[augment] WARNING: --mesh {n} requested but only {have} device(s) "
+            f"available; using a {have}-device mesh",
+            file=sys.stderr,
+        )
+    return [torch.device("cuda", i) for i in range(min(n, have))]
+
+
 def card_label() -> str:
     """The first card's ``name, power.limit`` as ``nvidia-smi`` reports them,
     printed beside every measured number (a card capped below its maximum

@@ -1,25 +1,30 @@
 """Command-line interface of the PyTorch port: ``python -m pantas_tpu_torch``.
 
-The subcommands are ``pantas_tpu``'s (see ``pantas_tpu/cli.py``). This CLI
-owns ``augment``: ``--engine device`` (native parse -> device scatter-add)
-and ``--engine device-py`` (Python tokenizer -> device) run the port on
-``--device`` (``cuda`` by default, ``cpu`` for tests), and the host engines
-(``auto``, ``native``, ``host``) run ``pantas_tpu``'s own host code. It owns
-``call`` too: ``--engine device [--mesh N]`` runs the port's bitset finders
-on ``--device``, and ``--engine host`` the host caller. Device paths that are
-not ported yet (``augment --mesh``, ``augment-dist``) exit non-zero and say
-so. Every other subcommand is ``pantas_tpu.cli.main`` unchanged: those
-stages are host code on either backend.
+The subcommands are ``pantas_tpu``'s (see ``pantas_tpu/cli.py``), and so are
+their flags. This CLI owns the pipeline's stages, each on this package's own
+code: ``build``, ``augment``, ``call``, ``quant`` and ``remap``.
+
+``augment --engine device`` (native parse -> device scatter-add) and
+``--engine device-py`` (Python tokenizer -> device) run on ``--device``
+(``cuda`` by default, ``cpu`` for tests), on one device or, with ``--mesh N``
+or ``--mesh DxK``, on a mesh of them; the host engines (``auto``, ``native``,
+``host``) need no device. ``call --engine device [--mesh N]`` runs the bitset
+finders on ``--device``, ``--engine host`` the host caller.
+
+Every other subcommand of ``pantas_tpu`` (``map``, ``prefilter``,
+``augment-dist``, the evaluation, legacy and experiment tools) is listed by
+``--help`` and exits 2 with a message: it is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
 
-from pantas_tpu import cli as _tpu_cli
+from pantas_tpu_torch import __version__
 
 NOT_PORTED = "is not ported to pantas_tpu_torch yet (see ROADMAP.md)"
 
@@ -27,6 +32,63 @@ NOT_PORTED = "is not ported to pantas_tpu_torch yet (see ROADMAP.md)"
 def _refuse(what: str) -> int:
     print(f"[pantas-tpu-torch] {what} {NOT_PORTED}", file=sys.stderr)
     return 2
+
+
+def _cmd_build(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch build")
+    ap.add_argument("FA")
+    ap.add_argument("GTF")
+    ap.add_argument("VCF")
+    ap.add_argument("-o", dest="outdir", default=".")
+    ap.add_argument("-a", dest="aggressive", action="store_true", help="aggressive prune (hp=1)")
+    ap.add_argument("-r", dest="reduce", action="store_true", help="reduce instead of prune (hp=2)")
+    ap.add_argument("-t", dest="threads", type=int, default=8)
+    ap.add_argument("-m", dest="max_node_len", type=int, default=32,
+                    help="maximum node length (default 32, vg-compatible)")
+    ap.add_argument("--no-prune", dest="no_prune", action="store_true",
+                    help="keep alt nodes of alleles no haplotype carries "
+                    "(hp=0 default prunes them, matching vg prune "
+                    "--restore-paths semantics)")
+    ap.add_argument("--w-lines", dest="w_lines", action="store_true",
+                    help="emit haplotype transcript walks as GFA 1.1 W lines")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.build.pipeline import build_pangenome
+
+    hp = 1 if args.aggressive else (2 if args.reduce else 0)
+    build_pangenome(
+        args.FA, args.GTF, args.VCF, args.outdir, hp=hp, threads=args.threads,
+        max_node_len=args.max_node_len, w_lines=args.w_lines,
+        prune=not args.no_prune,
+    )
+    return 0
+
+
+@contextlib.contextmanager
+def _stage_out(path):
+    """Stage stdout or -o FILE; *.gz/*.zst names compress transparently
+    (byte-identity contracts are on the decompressed content)."""
+    if path is None:
+        yield sys.stdout
+        return
+    from pantas_tpu_torch.io.xopen import open_stage_output
+
+    with open_stage_output(path) as fh:
+        yield fh
+
+
+def _reset_output_or_raise(out, exc):
+    """A failed engine may have written part of the GFA already; the
+    fallback must start from byte 0 or not run at all — appending a
+    complete output after a partial one silently corrupts the stage
+    whose contract is byte-identity."""
+    try:
+        if out.seekable():
+            out.seek(0)
+            out.truncate()
+            return
+    except Exception:
+        pass
+    raise exc
 
 
 def _cmd_augment(argv):
@@ -48,7 +110,13 @@ def _cmd_augment(argv):
         help="device of the device engines (default cuda; never falls back)",
     )
     ap.add_argument("-t", dest="threads", type=int, default=1, help="native parse threads")
-    ap.add_argument("--mesh", default=None, help="multi-device mesh (not ported yet)")
+    ap.add_argument(
+        "--mesh",
+        default=None,
+        help="device engine mesh: N (data-parallel over N devices) or DxK "
+        "(D data shards x K node-axis count shards); with --device cpu the "
+        "shards are logical",
+    )
     ap.add_argument(
         "--checkpoint", default=None, metavar="FILE",
         help="device engines: persist counts + parse offset atomically "
@@ -62,55 +130,81 @@ def _cmd_augment(argv):
                     help="output GFA (default stdout; .gz/.zst compresses)")
     args = ap.parse_args(argv)
     args.thr = args.mapq if args.thr is None else args.thr
-    if args.mesh:
-        return _refuse("augment --mesh")
-    dev = None
+    dev = mesh = None
     if args.engine in ("device", "device-py"):
         from pantas_tpu_torch import backend
-
-        from pantas_tpu_torch.coverage.device import scatter_choice
+        from pantas_tpu_torch.coverage.device import check_mesh_scatter, scatter_choice
 
         # before the output is opened
         dev = backend.device(args.device)
-        scatter_choice(os.environ.get("PANTAS_SCATTER", ""))
-    with _tpu_cli._stage_out(args.out) as out:
-        return _run_augment(args, dev, out)
+        scatter_env = os.environ.get("PANTAS_SCATTER", "")
+        scatter_choice(scatter_env)
+        if args.mesh:
+            check_mesh_scatter(scatter_env)
+            mesh = _augment_mesh(args.mesh, args.device)
+    with _stage_out(args.out) as out:
+        return _run_augment(args, dev, mesh, out)
 
 
-def _run_augment(args, dev, out) -> int:
-    if dev is None:
-        return _tpu_cli._run_augment(args, args.engine, out)
-    from pantas_tpu_torch.coverage.device import (
-        NativeFeedUnavailable,
-        augment_gfa_device,
-        augment_gfa_device_native,
-    )
+def _augment_mesh(spec: str, device_name: str):
+    """The mesh of ``--mesh N`` or ``--mesh DxK`` on ``device_name``."""
+    from pantas_tpu_torch import backend
+    from pantas_tpu_torch.parallel.mesh import coverage_mesh, coverage_mesh_2d
 
-    if args.engine == "device":
+    if "x" in spec:
+        d, k = (int(v) for v in spec.split("x"))
+        return coverage_mesh_2d(backend.mesh_devices(device_name, d * k, strict=True), d, k)
+    return coverage_mesh(backend.mesh_devices(device_name, int(spec)))
+
+
+def _run_augment(args, dev, mesh, out) -> int:
+    engine = args.engine
+    if engine in ("auto", "native"):
         try:
-            augment_gfa_device_native(
-                args.GAF, args.GFA, out=out, mapq_thr=args.thr, device=dev,
-                checkpoint_path=args.checkpoint, resume=args.resume,
+            from pantas_tpu_torch.native import augment_gfa_native
+
+            augment_gfa_native(
+                args.GAF, args.GFA, out=out, mapq_thr=args.thr,
+                threads=args.threads,
             )
             return 0
-        except NativeFeedUnavailable as e:
-            # raised before any output is written; errors of the kernel or
-            # the device propagate instead
-            _tpu_cli._reset_output_or_raise(out, e)
-            print(
-                f"[augment] native device feed unavailable ({e}); "
-                "python tokenizer fallback",
-                file=sys.stderr,
-            )
-    augment_gfa_device(
-        args.GAF, args.GFA, out=out, mapq_thr=args.thr, device=dev,
-        checkpoint_path=args.checkpoint, resume=args.resume,
-    )
+        except Exception as e:
+            if engine == "native":
+                raise
+            _reset_output_or_raise(out, e)
+            print(f"[augment] native engine unavailable ({e}); falling back", file=sys.stderr)
+    if engine in ("device", "device-py"):
+        from pantas_tpu_torch.coverage.device import (
+            NativeFeedUnavailable,
+            augment_gfa_device,
+            augment_gfa_device_native,
+        )
+
+        if engine == "device":
+            try:
+                augment_gfa_device_native(
+                    args.GAF, args.GFA, out=out, mapq_thr=args.thr, device=dev, mesh=mesh,
+                    checkpoint_path=args.checkpoint, resume=args.resume,
+                )
+                return 0
+            except NativeFeedUnavailable as e:
+                # raised before any output is written; errors of the kernel
+                # or the device propagate instead
+                _reset_output_or_raise(out, e)
+                print(
+                    f"[augment] native device feed unavailable ({e}); "
+                    "python tokenizer fallback",
+                    file=sys.stderr,
+                )
+        augment_gfa_device(
+            args.GAF, args.GFA, out=out, mapq_thr=args.thr, device=dev, mesh=mesh,
+            checkpoint_path=args.checkpoint, resume=args.resume,
+        )
+        return 0
+    from pantas_tpu_torch.coverage.host import augment_gfa
+
+    augment_gfa(args.GAF, args.GFA, out=out, mapq_thr=args.thr)
     return 0
-
-
-def _cmd_augment_dist(argv):
-    return _refuse("augment-dist")
 
 
 def _cmd_call(argv):
@@ -147,7 +241,7 @@ def _cmd_call(argv):
     ap.add_argument("-o", dest="out", default=None,
                     help="output CSV (default stdout; .gz/.zst compresses)")
     args = ap.parse_args(argv)
-    from pantas_tpu.events import CallOptions, call_events
+    from pantas_tpu_torch.events.caller import CallOptions, call_events
 
     events = []
     for e in args.events:
@@ -166,36 +260,133 @@ def _cmd_call(argv):
         import functools
 
         from pantas_tpu_torch import backend
-        from pantas_tpu_torch.events import call_events_device
+        from pantas_tpu_torch.events.batched import call_events_device
 
         # before the output is opened
         devices = backend.devices(args.device, args.mesh or 1)
         call_fn = functools.partial(call_events_device, devices=devices)
     else:
         call_fn = call_events
-    with _tpu_cli._stage_out(args.out) as out:
+    with _stage_out(args.out) as out:
         for row in call_fn(args.GFA, args.GTF, opts):
             print(row, file=out)
     return 0
 
 
+def _cmd_quant(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch quant")
+    ap.add_argument("-a", dest="report_all", action="store_true", help="report one-sided events")
+    ap.add_argument("-w", dest="w", type=int, default=0)
+    ap.add_argument("--pool-w", dest="pool_w", type=int, default=None,
+                    help="EXTENSION: pooled-replicate junction coverage "
+                    "threshold (feed from a w=0 call pass); replaces -w's "
+                    "per-replicate drop — recovers consistent weak events")
+    ap.add_argument("--c1", dest="c1", nargs="+", default=None)
+    ap.add_argument("--c2", dest="c2", nargs="+", default=None)
+    ap.add_argument("csvs", nargs="*", help="C1 replicates then C2 replicates")
+    ap.add_argument("-o", dest="out", default=None,
+                    help="output CSV (default stdout; .gz/.zst compresses)")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.quant import quantify
+
+    if (args.c1 is None) != (args.c2 is None):
+        print("ERROR: provide both --c1 and --c2 (or positional replicates).", file=sys.stderr)
+        return 1
+    if args.c1 and args.c2:
+        c1, c2 = args.c1, args.c2
+    elif not args.csvs:
+        print("ERROR: no replicate CSVs given.", file=sys.stderr)
+        return 1
+    else:
+        if len(args.csvs) % 2 != 0:
+            print("ERROR: Wrong number of replicates.", file=sys.stderr)
+            return 1
+        half = len(args.csvs) // 2
+        c1, c2 = args.csvs[:half], args.csvs[half:]
+    if len(c1) != len(c2):
+        print("Provide the same number of replicates for each condition", file=sys.stderr)
+        return 1
+    # the reference CLI defaults to --both; -a reports one-sided events too
+    if args.pool_w is not None and args.w:
+        print("ERROR: --pool-w and -w are mutually exclusive.", file=sys.stderr)
+        return 1
+    with _stage_out(args.out) as out:
+        quantify(c1, c2, both=not args.report_all, min_w=args.w, out=out,
+                 pool_w=args.pool_w)
+    return 0
+
+
+def _cmd_remap(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch remap")
+    ap.add_argument("CSV")
+    ap.add_argument("GTF")
+    ap.add_argument("-i", dest="min_intron_size", type=int, default=100)
+    ap.add_argument("-o", dest="out", default=None,
+                    help="output CSV (default stdout; .gz/.zst compresses)")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.remap import remap
+
+    with _stage_out(args.out) as out:
+        remap(args.CSV, args.GTF, min_intron_size=args.min_intron_size, out=out)
+    return 0
+
+
 _OWN = {
+    "build": _cmd_build,
     "augment": _cmd_augment,
-    "augment-dist": _cmd_augment_dist,
     "call": _cmd_call,
+    "quant": _cmd_quant,
+    "remap": _cmd_remap,
 }
-_COMMANDS = {**_tpu_cli._COMMANDS, **_OWN}
+# the subcommands of pantas_tpu's CLI that wait for their port
+_NOT_PORTED = (
+    "augment-dist", "map", "map-accuracy", "prefilter", "reduce", "gamp", "prune",
+    "reintroduce-paths", "add-junctions", "add-haplotypes", "replicate", "gaf2sam",
+    "introns", "cmp", "compare-rtpcr", "parse-res", "plot-pr", "latex-table",
+    "filter-reads", "fix-vidx", "clean-gtf", "convert-rmats", "convert-suppa",
+    "check-coverage", "check-novel", "timev", "bench-table", "novel-sites", "exp",
+    "sim", "eval",
+)
+_COMMANDS = {**_OWN, **{name: None for name in _NOT_PORTED}}
+
+_USAGE = f"""pantas-tpu-torch [{'|'.join(_OWN)}|version] -h
+
+  pipeline stages (this package's own code):
+    build       build and annotate a spliced pangenome
+    augment     augment an annotated spliced pangenome using alignments information
+                (--engine device [--mesh N|DxK] runs on the card)
+    call        call events from single replicate (--engine device [--mesh N])
+    quant       quantify events comparing conditions
+    remap       remap events to reference haplotype
+
+  subcommands of pantas_tpu that are not ported yet (each exits 2):
+    {" ".join(_NOT_PORTED[:9])}
+    {" ".join(_NOT_PORTED[9:19])}
+    {" ".join(_NOT_PORTED[19:])}
+
+    version     print the version
+"""
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    fn = _OWN.get(argv[0]) if argv else None
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        print(_USAGE, file=sys.stdout if argv else sys.stderr)
+        return 0 if argv else 1
+    mode, rest = argv[0], argv[1:]
+    if mode == "version":
+        print(f"pantas-tpu-torch, {__version__}")
+        return 0
+    if mode not in _COMMANDS:
+        print(_USAGE, file=sys.stderr)
+        return 1
+    fn = _OWN.get(mode)
     if fn is None:
-        return _tpu_cli.main(argv)
+        return _refuse(mode)
     t0 = time.time()
-    rc = fn(argv[1:])
+    rc = fn(rest)
     if rc == 0:
-        print(f"[pantas-tpu-torch] {argv[0]} completed in {time.time() - t0:.2f}s",
+        print(f"[pantas-tpu-torch] {mode} completed in {time.time() - t0:.2f}s",
               file=sys.stderr)
     return rc
 

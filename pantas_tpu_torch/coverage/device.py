@@ -1,17 +1,19 @@
-"""Device-side coverage accumulation on one card (the port's augment engine).
+"""Device-side coverage accumulation (the port's augment engine).
 
-Port of ``pantas_tpu/coverage/device.py`` for a single device. The per-read
-semantics stay on the host; what reaches the device is a flat stream of
-count-slot indices into one counts vector (layout ``[NC | IL | OL | RC]``,
-see :mod:`pantas_tpu.graph.compiler`), and each batch of it is one step of
+Port of ``pantas_tpu/coverage/device.py``. The per-read semantics stay on
+the host; what reaches the device is a flat stream of count-slot indices into
+one counts vector (layout ``[NC | IL | OL | RC]``, see
+:mod:`pantas_tpu_torch.graph.compiler`), and each batch of it is one step of
 the scatter that ``PANTAS_SCATTER`` selects (:func:`scatter_choice`): by
 default :func:`pantas_tpu_torch.coverage.kernels.sorted_coverage_scatter_add`,
-on a CUDA device the hand-written kernel, on the CPU its plain version.
+on a CUDA device the hand-written kernel, on the CPU its plain version. Under
+a mesh (:mod:`pantas_tpu_torch.parallel.mesh`) the same step runs on every
+shard's private partial, and one reduction ends the stream.
 
 The host side (``SlotEncoder``, ``counts_from_device``, the native parser and
-emitter) is ``pantas_tpu``'s own code, imported, not copied. Checkpoints use
-the JAX engine's pickle format, so a run saved by either package resumes in
-the other.
+emitter) is this package's own copy of the JAX package's host code.
+Checkpoints use the JAX engine's pickle format (numpy arrays and builtins
+only), so a run saved by either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -20,19 +22,26 @@ import os
 import pickle
 import subprocess
 import sys
-from typing import Optional
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pantas_tpu.coverage.device import SlotEncoder, _estimate_batches, counts_from_device
-from pantas_tpu.coverage.host import CoverageCounts, emit_augmented_gfa
-from pantas_tpu.coverage.semantics import DEFAULT_MAPQ_THR, REJECTED, SKIPPED, read_events
-from pantas_tpu.graph.compiler import GraphTensors
-from pantas_tpu.io.gaf import parse_gaf_line
-from pantas_tpu.io.xopen import xopen
 from pantas_tpu_torch import backend
 from pantas_tpu_torch.coverage import kernels, scatter_impls
+from pantas_tpu_torch.coverage.host import CoverageCounts, emit_augmented_gfa
+from pantas_tpu_torch.coverage.semantics import (
+    DEFAULT_MAPQ_THR,
+    REJECTED,
+    SKIPPED,
+    ReadEvents,
+    read_events,
+)
+from pantas_tpu_torch.graph.compiler import GraphTensors, compile_gfa
+from pantas_tpu_torch.io.gaf import parse_gaf_line
+from pantas_tpu_torch.io.xopen import xopen
+from pantas_tpu_torch.parallel import mesh as mesh_lib
 
 # PANTAS_SCATTER values: the JAX package's spellings and the port's own names
 SCATTER_CHOICES = {
@@ -41,6 +50,59 @@ SCATTER_CHOICES = {
     "cuda-sorted": "cuda-sorted",
     "race": "race", "auto": "race",
 }
+
+
+class SlotEncoder:
+    """Convert ReadEvents into count-slot indices + host-side order tracking."""
+
+    def __init__(self, tensors: GraphTensors):
+        self.t = tensors
+        self.slots: List[int] = []
+        # first-seen orders for byte-identical emission; the dict VALUES are
+        # the first-seen stream position (cur_pos) — unused single-process
+        # (key order carries the order), but the multi-process merge sorts
+        # by them to reconstruct the global file order
+        self.il_seen: Dict[int, Dict[int, Optional[int]]] = {}
+        self.ol_seen: Dict[int, Dict[int, Optional[int]]] = {}
+        self.novel: Dict[Tuple[int, int], int] = {}
+        self.novel_order: List[Tuple[int, int]] = []
+        self.novel_first: Dict[Tuple[int, int], Optional[int]] = {}
+        self.cur_pos: Optional[int] = None  # byte offset of the current record
+        self.rejected = 0
+        self.skipped = 0
+        self.accepted = 0
+
+    def add(self, ev: ReadEvents) -> None:
+        t = self.t
+        idx = t.node_index
+        slots = self.slots
+        for name in ev.nodes:
+            slots.append(idx[name])
+        for name, off in ev.il:
+            ni = idx[name]
+            slots.append(int(t.il_base[ni]) + off + 1)
+            self.il_seen.setdefault(ni, {}).setdefault(off, self.cur_pos)
+        for name, off in ev.ol:
+            ni = idx[name]
+            slots.append(int(t.ol_base[ni]) + off + 1)
+            self.ol_seen.setdefault(ni, {}).setdefault(off, self.cur_pos)
+        for a, b in ev.edges:
+            ai, bi = idx[a], idx[b]
+            e = t.edge_lookup(ai, bi)
+            if e >= 0:
+                slots.append(t.rc_base + e)
+            else:
+                key = (ai, bi)
+                if key not in self.novel:
+                    self.novel[key] = 0
+                    self.novel_order.append(key)
+                    self.novel_first[key] = self.cur_pos
+                self.novel[key] += 1
+
+    def take_slots(self) -> np.ndarray:
+        arr = np.asarray(self.slots, dtype=np.int32)
+        self.slots = []
+        return arr
 
 
 class NativeFeedUnavailable(RuntimeError):
@@ -75,6 +137,19 @@ def scatter_choice(value: str) -> str:
         ) from None
 
 
+def check_mesh_scatter(value: str) -> None:
+    """Refuse ``race`` and ``auto`` under a mesh. The JAX engine ignores
+    ``PANTAS_SCATTER`` under a mesh and runs its XLA scatter; here a shard's
+    partial is an ordinary tensor on one device, so every shard runs the
+    named step, and a race that quietly settled on ``index_add_`` would hide
+    the kernel."""
+    if scatter_choice(value) == "race":
+        raise ValueError(
+            f"PANTAS_SCATTER={value} cannot be combined with a mesh: name a "
+            "scatter (plain, cuda-sorted) or leave it unset for cuda-sorted"
+        )
+
+
 def impl_label(name: str, device: torch.device) -> str:
     """The impl as logged: on the CPU a kernel's wrapper runs its plain
     version, so ``cuda-sorted`` shows as ``cpu-sorted-plain`` there."""
@@ -84,34 +159,64 @@ def impl_label(name: str, device: torch.device) -> str:
 
 
 class DeviceCoverage:
-    """Accumulate a slot stream on one device.
+    """Accumulate a slot stream on one device, or on a mesh of them.
+
+    ``mesh=None``: one device, counts padded to a power-of-two bucket. 1-D
+    mesh: data-parallel slot shards, one private full-length partial per
+    shard. 2-D mesh (``data`` × ``node``): the partials are additionally
+    sharded over the node axis, each device owning a contiguous slot range.
+    Either way ``counts`` then holds the partials (``counts[d][k]``) and the
+    one reduction happens in :meth:`merged`.
 
     The scatter step is chosen from ``PANTAS_SCATTER`` (:func:`scatter_choice`)
     as the JAX engine chooses it: a named impl at once, or ``race``/``auto``
     on the first batch that holds a real index, by
     :func:`.scatter_impls.pick_scatter_endtoend` with ``batches_hint``, the
     stage's expected batch count
-    (:func:`pantas_tpu.coverage.device._estimate_batches`); ``race`` forces
+    (:func:`_estimate_batches`); ``race`` forces
     a fresh race, ``auto`` decides from a cached verdict where one exists.
+    Under a mesh the race is refused (:func:`check_mesh_scatter`): every
+    shard runs the named step, ``cuda-sorted`` when nothing is named.
     """
 
-    def __init__(self, tensors: GraphTensors, device, batches_hint=None, log=None):
+    def __init__(self, tensors: GraphTensors, device=None, batches_hint=None, log=None,
+                 mesh: Optional[mesh_lib.CoverageMesh] = None):
         self.t = tensors
-        self.device = backend.device(device)
+        self.mesh = mesh
+        # results land on the mesh's first device
+        self.device = backend.device(mesh.devices[0] if mesh is not None else device)
         self.log = sys.stderr if log is None else log
-        # the JAX engine's power-of-two bucket, kept so both engines hold the
-        # same padded vector (checkpoints and tests compare them directly)
-        self._padded_slots = max(1 << 12, 1 << (tensors.total_slots - 1).bit_length())
-        self.counts = torch.zeros(self._padded_slots, dtype=torch.int32, device=self.device)
         self.batches = 0
         self._launches_at_start = sum(kernels.LAUNCHES.values())
         self._batches_hint = batches_hint
         env = os.environ.get("PANTAS_SCATTER", "")
         choice = scatter_choice(env)
         self._force_race = env.lower() == "race"
-        # resolved on the first real batch when racing
-        self._step = None if choice == "race" else scatter_impls.SCATTER_IMPLS[choice]
-        label = "race pending" if choice == "race" else impl_label(choice, self.device)
+        if mesh is not None:
+            check_mesh_scatter(env)
+            step = scatter_impls.SCATTER_IMPLS[choice]
+            self.n_shards = mesh.data
+            if mesh.node is not None:
+                self._step, shard = mesh_lib.node_sharded_scatter_add(
+                    mesh, tensors.total_slots, step
+                )
+                self._padded_slots = shard * mesh.node
+            else:
+                self._step = mesh_lib.data_parallel_scatter_add(mesh, step)
+                shard = self._padded_slots = tensors.total_slots
+            # the kernels take counts of any length (they mask at ``n``), so
+            # the partials are not padded further
+            self.counts = mesh_lib.new_parts(mesh, shard)
+            label = f"{impl_label(choice, self.device)} on a {mesh} mesh"
+        else:
+            self.n_shards = 1
+            # the JAX engine's power-of-two bucket, kept so both engines hold
+            # the same padded vector (checkpoints and tests compare them)
+            self._padded_slots = max(1 << 12, 1 << (tensors.total_slots - 1).bit_length())
+            self.counts = torch.zeros(self._padded_slots, dtype=torch.int32, device=self.device)
+            # resolved on the first real batch when racing
+            self._step = None if choice == "race" else scatter_impls.SCATTER_IMPLS[choice]
+            label = "race pending" if choice == "race" else impl_label(choice, self.device)
         print(
             f"[device] scatter impl: {label} ({self._padded_slots} slots, "
             f"~{batches_hint} batches expected)",
@@ -124,6 +229,13 @@ class DeviceCoverage:
             padded = -np.ones(pad_to, dtype=np.int32)
             padded[: len(slots)] = slots
             slots = padded
+        if self.mesh is not None:
+            if len(slots) % self.n_shards != 0:
+                slots = mesh_lib.pad_to_multiple(slots, self.n_shards)
+            # the batch stays on the host; the mesh step copies each shard
+            self._step(self.counts, torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32)))
+            self.batches += 1
+            return
         step = self._step
         if step is None:
             if not (np.asarray(slots) >= 0).any():
@@ -143,8 +255,49 @@ class DeviceCoverage:
         step(self.counts, idx)
         self.batches += 1
 
+    def merged(self) -> torch.Tensor:
+        """The counts as one tensor on :attr:`device`: the single-device
+        vector itself, or the one reduction of a mesh's partials."""
+        if self.mesh is None:
+            return self.counts
+        return mesh_lib.reduce_data_parts(self.counts)
+
+    def restore(self, flat: np.ndarray) -> None:
+        """Replace the counts by a host vector (a checkpoint's). Under a mesh
+        it becomes data row 0's partials and every other row is zeroed, which
+        sums to the same vector."""
+        if self.mesh is None:
+            self.counts = counts_from_numpy(flat, self._padded_slots, self.device)
+            return
+        restored = np.zeros(self._padded_slots, dtype=np.int32)
+        restored[: len(flat)] = flat
+        shard = self._padded_slots // self.mesh.columns
+        self.counts = mesh_lib.new_parts(self.mesh, shard)
+        for k, part in enumerate(self.counts[0]):
+            part.copy_(torch.from_numpy(restored[k * shard : (k + 1) * shard]))
+
+    def _sync(self) -> None:
+        for dev in set(self.mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
     def result(self) -> np.ndarray:
-        flat = self._read_back(self.counts)
+        if self.mesh is None:
+            merged = self.counts
+        else:
+            # the one reduction, timed on its own: the shards' queued steps
+            # are waited for first
+            self._sync()
+            t0 = time.perf_counter()
+            merged = self.merged()
+            self._sync()
+            held = sum(p.numel() * p.element_size() for row in self.counts for p in row)
+            print(
+                f"[device] mesh {self.mesh}: {held} bytes of partials reduced in "
+                f"{time.perf_counter() - t0:.4f}s",
+                file=self.log,
+            )
+        flat = self._read_back(merged)
         print(
             f"[device] kernel launches: {sum(kernels.LAUNCHES.values()) - self._launches_at_start} "
             f"(batches: {self.batches})",
@@ -176,13 +329,13 @@ class DeviceCoverage:
 
 def _restore_counts(state: dict, dev: DeviceCoverage) -> None:
     """Place a checkpoint's counts (either encoding) on ``dev``'s device."""
-    restored = np.zeros(dev._padded_slots, dtype=np.int32)
     if "counts_nz" in state:
         idx, vals = state["counts_nz"]
+        restored = np.zeros(dev.t.total_slots, dtype=np.int32)
         restored[idx] = vals
     else:
-        restored[: len(state["counts"])] = state["counts"]
-    dev.counts = counts_from_numpy(restored, dev._padded_slots, dev.device)
+        restored = state["counts"]
+    dev.restore(restored)
 
 
 def _check_graph(state: dict, tensors: GraphTensors) -> None:
@@ -210,6 +363,70 @@ def _write_atomic(path: str, state: dict) -> None:
     os.replace(tmp, path)
 
 
+def counts_from_device(
+    tensors: GraphTensors, enc: SlotEncoder, flat: np.ndarray
+) -> CoverageCounts:
+    """Assemble host CoverageCounts (for emission) from the device vector."""
+    t = tensors
+    counts = CoverageCounts()
+    counts.rejected = enc.rejected
+    counts.skipped = enc.skipped
+    counts.accepted = enc.accepted
+    counts.node_len = {n: int(l) for n, l in zip(t.node_names, t.node_len)}
+
+    nc = flat[: t.n_nodes]
+    for ni in np.nonzero(nc)[0]:
+        counts.nc[t.node_names[ni]] = int(nc[ni])
+
+    for ni, seen in enc.il_seen.items():
+        base = int(t.il_base[ni])
+        counts.il[t.node_names[ni]] = {
+            off: int(flat[base + off + 1]) for off in seen
+        }
+    for ni, seen in enc.ol_seen.items():
+        base = int(t.ol_base[ni])
+        counts.ol[t.node_names[ni]] = {
+            off: int(flat[base + off + 1]) for off in seen
+        }
+
+    rc = flat[t.rc_base :]
+    for e in np.nonzero(rc)[0]:
+        a = t.node_names[int(t.edge_src[e])]
+        b = t.node_names[int(t.edge_dst[e])]
+        counts.edge[(a, b)] = int(rc[e])
+    for ai, bi in enc.novel_order:
+        counts.edge[(t.node_names[ai], t.node_names[bi])] = enc.novel[(ai, bi)]
+    return counts
+
+
+def _estimate_batches(gaf_path: str, flush_every: int) -> int:
+    """Expected slot-batch count for a GAF, from its byte size.
+
+    Calibration on the bench workload: ~160 bytes and ~23 count slots per
+    record. Order-of-magnitude is all the scatter-impl projection needs
+    (it separates 23-batch panel stages from 500-batch genome stages).
+    """
+    try:
+        size = os.path.getsize(gaf_path)
+        p = str(gaf_path)
+        if p.endswith(".gz"):
+            # gzip ISIZE trailer: decompressed size mod 2^32 — exact for
+            # anything under 4 GiB, and a far better hint than the 4-5x
+            # smaller compressed byte count
+            with open(p, "rb") as fh:
+                fh.seek(-4, os.SEEK_END)
+                import struct
+
+                isize = struct.unpack("<I", fh.read(4))[0]
+            if isize:
+                size = isize
+        elif p.endswith(".zst"):
+            size *= 4  # typical text ratio; a hint only
+    except OSError:
+        return 1
+    return max(1, int(size * 23 / (160 * flush_every)))
+
+
 def _save_checkpoint(path: str, enc: SlotEncoder, dev: DeviceCoverage, offset: int):
     """Atomic checkpoint of the Python-fed stage: device counts + encoder
     orders + the GAF byte offset of the next unprocessed record (the JAX
@@ -226,7 +443,7 @@ def _save_checkpoint(path: str, enc: SlotEncoder, dev: DeviceCoverage, offset: i
         "novel": enc.novel,
         "novel_order": enc.novel_order,
     }
-    _encode_counts(state, dev._read_back(dev.counts))
+    _encode_counts(state, dev._read_back(dev.merged()))
     _write_atomic(path, state)
 
 
@@ -253,7 +470,7 @@ def _save_native_checkpoint(path, dev, eng, tensors, offset, base_sidecars, flat
     from pantas_tpu_torch.parallel.distributed import _native_sidecar
 
     if flat is None:
-        flat = dev._read_back(dev.counts)
+        flat = dev._read_back(dev.merged())
     state = {
         "total_slots": tensors.total_slots,
         "offset": int(offset),
@@ -264,7 +481,7 @@ def _save_native_checkpoint(path, dev, eng, tensors, offset, base_sidecars, flat
 
 
 def _native_engine(tensors: GraphTensors):
-    from pantas_tpu.native.gafcov import NativeCoverage
+    from pantas_tpu_torch.native.gafcov import NativeCoverage
 
     try:
         return NativeCoverage(tensors)
@@ -281,6 +498,7 @@ def augment_gfa_device_native(
     flush_every: int = 1 << 20,
     log=None,
     tensors: Optional[GraphTensors] = None,
+    mesh: Optional[mesh_lib.CoverageMesh] = None,
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 8,  # batches between checkpoints
     resume: bool = False,
@@ -300,18 +518,21 @@ def augment_gfa_device_native(
     counts agree); ``resume`` continues from the saved offset, and the
     result is identical to the uninterrupted run.
 
+    With ``mesh`` the batches are sharded over its devices (``device`` is
+    then ignored) and checkpoints hold the reduced vector, so a checkpoint
+    carries between mesh shapes and to a single device.
+
     Raises :class:`NativeFeedUnavailable` if the native engine cannot serve
     the graph; callers may then use :func:`augment_gfa_device`.
     """
-    from pantas_tpu.graph.compiler import compile_gfa
-
     log = sys.stderr if log is None else log
     print("Read GFA (tensorize)", file=log)
     if tensors is None:
         tensors = compile_gfa(gfa_path)
     eng = _native_engine(tensors)
     dev = DeviceCoverage(
-        tensors, device, batches_hint=_estimate_batches(gaf_path, flush_every), log=log
+        tensors, device, batches_hint=_estimate_batches(gaf_path, flush_every), log=log,
+        mesh=mesh,
     )
 
     start_offset = 0
@@ -411,15 +632,15 @@ def augment_gfa_device(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 1,  # flushes between checkpoints
     resume: bool = False,
+    mesh: Optional[mesh_lib.CoverageMesh] = None,
 ) -> CoverageCounts:
     """Full augment stage with device-side accumulation, fed by the
     pure-Python tokenizer (the portable variant; the native feed of
     :func:`augment_gfa_device_native` runs the same device step). With
     ``checkpoint_path``, the device counts and encoder state persist
     atomically every ``checkpoint_every`` flushes; ``resume=True`` continues
-    a previous run from its saved GAF offset."""
-    from pantas_tpu.graph.compiler import compile_gfa
-
+    a previous run from its saved GAF offset. ``mesh`` as in
+    :func:`augment_gfa_device_native`."""
     log = sys.stderr if log is None else log
     print("Read GFA (tensorize)", file=log)
     tensors = compile_gfa(gfa_path)
@@ -427,7 +648,8 @@ def augment_gfa_device(
 
     enc = SlotEncoder(tensors)
     dev = DeviceCoverage(
-        tensors, device, batches_hint=_estimate_batches(gaf_path, flush_every), log=log
+        tensors, device, batches_hint=_estimate_batches(gaf_path, flush_every), log=log,
+        mesh=mesh,
     )
 
     start_offset = 0

@@ -1,11 +1,10 @@
 """First-seen sidecars of the native slot feed (host code).
 
-Copied from ``pantas_tpu/parallel/distributed.py`` because importing anything
-under ``pantas_tpu.parallel`` loads its mesh module, and with it ``jax``. A
-resumed device augment uses them to rebuild the single-stream first-seen
-orders (IL/OL offsets per node, novel edges) from the run before the
-interruption and the run after it. The multi-process augment that also uses
-them is not ported yet (ROADMAP.md).
+The port's copy of ``_native_sidecar`` and ``_merge_sidecars`` from
+``pantas_tpu/parallel/distributed.py``. A resumed device augment uses them to
+rebuild the single-stream first-seen orders (IL/OL offsets per node, novel
+edges) from the run before the interruption and the run after it. The
+multi-process augment that also uses them is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ def _native_sidecar(tensors, eng) -> dict:
 
 def _merge_sidecars(tensors, sidecars):
     """Rebuild the single-stream encoder state from per-process sidecars."""
-    from pantas_tpu.coverage.device import SlotEncoder
+    from pantas_tpu_torch.coverage.device import SlotEncoder
 
     enc = SlotEncoder(tensors)
     il: dict = {}
