@@ -20,7 +20,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
    same seeded batches. Then both kernels, the sorted kernel's window
    partition alone (``kernels.window_partition``) and ``index_add_`` once
    more at 2^25 and 2^28 on 2^20 uniform indices in [-1, n), which hold no
-   long run, and at 2^25 on a batch whose 2^20 indices all name one slot.
+   long run, and on a batch whose 2^20 indices all name one slot, each beside
+   one bare ``index_add_`` call and the batch's bound.
 3. Main path end to end: the 10 Mbp synthetic pangenome and 1M reads of
    ``pantas_tpu_torch.eval.synth`` (built by the port's own ``build`` stage,
    cached under ``.bench/``; its sha256 is printed), augmented by
@@ -46,10 +47,11 @@ Run from the root of a checkout, on a machine with a CUDA card:
    the micro fixtures of ``tests/fixtures_call.py`` then run with ``--rca 0
    --novel`` on both engines: equal rows, and the novel ES, novel exonic SS
    and CE finders evaluated on ``cuda``.
-7. ``torch.profiler`` splits the sorted kernel's device time by pass (the
-   partition's count, scan and scatter, then the histogram) on the uniform
-   and the one-slot batch at 2^25 and 2^28. It runs last: launches after a
-   profiled window were slower in the same process.
+7. ``torch.profiler`` gives the device time of each kernel on the uniform
+   and the one-slot batch at 2^25 and 2^28: the sorted kernel's by pass (the
+   partition's count, scan and scatter, then the histogram), the direct
+   kernel's one launch. It runs last: launches after a profiled window were
+   slower in the same process.
 
 8. The mesh at the same 10 Mbp / 1M-read cell: ``augment --engine device
    --mesh 1`` and ``--mesh 1x1`` through the CLI, then through the Python
@@ -58,8 +60,17 @@ Run from the root of a checkout, on a machine with a CUDA card:
    the sorted kernel's launches must equal shards x batches. A logical mesh
    shows the sharding arithmetic on the card and measures nothing about
    scaling.
-9. Isolation: no module named ``pantas_tpu``, ``pantas_tpu.*``, ``jax`` or
-   ``jax.*`` was loaded by anything above.
+9. Real slot batches: the 1M-read GAF streamed through the native slot
+   feed exactly as the stage streams it (2^20-index batches, the last
+   padded), kept on the host. On zeroed counts of the stage's 2^25 bucket
+   all of them go through kernel #2, kernel #1 and ``index_add_``: the three
+   vectors must be equal. Then the first, a middle and the last batch are
+   timed (both kernels, the plain version, one bare ``index_add_``) beside
+   what the batch looks like (valid indices, distinct slots and sectors,
+   longest run of equal neighbours, share equal to the left neighbour) and
+   its bound. It decides nothing: the default scatter stays as it is.
+10. Isolation: no module named ``pantas_tpu``, ``pantas_tpu.*``, ``jax`` or
+    ``jax.*`` was loaded by anything above.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -238,35 +249,39 @@ def direct_vs_plain(log2_slots: int, seed: int, label: str) -> dict:
 
 
 def _batch_vs_plain(n: int, d_idx, what: str, label: str) -> dict:
-    """Both kernels, the sorted kernel's window partition alone and
-    ``index_add_`` on one batch, on zeroed counts; all three scatters must
-    end equal."""
+    """Both kernels, the sorted kernel's window partition alone, the plain
+    ``index_add_`` and one bare ``index_add_`` call on prepared indices, on
+    one batch and zeroed counts; all four scatters must end equal."""
     from pantas_tpu_torch.coverage import kernels
     from pantas_tpu_torch.parallel.mesh import scatter_add_counts
 
-    counts = {k: torch.zeros(n, dtype=torch.int32, device="cuda") for k in ("sorted", "direct", "plain")}
+    counts = {k: torch.zeros(n, dtype=torch.int32, device="cuda")
+              for k in ("sorted", "direct", "plain", "library")}
+    l_idx, l_ones = _library_args(d_idx)
     ms = _timed_ms({
         "sorted": lambda: kernels.sorted_coverage_scatter_add(counts["sorted"], d_idx),
         "partition": lambda: kernels.window_partition(d_idx, n),
         "direct": lambda: kernels.coverage_scatter_add(counts["direct"], d_idx),
         "plain": lambda: scatter_add_counts(counts["plain"], d_idx),
+        "library": lambda: counts["library"].index_add_(0, l_idx, l_ones),
     })
     torch.cuda.synchronize()
     # each scatter ran the same batch WARM + REPS times
-    err = max(int((counts[k] - counts["plain"]).abs().max()) for k in ("sorted", "direct"))
+    err = max(int((counts[k] - counts["plain"]).abs().max()) for k in counts)
     if err or int(counts["plain"].sum()) != (WARM + REPS) * int((d_idx >= 0).sum()):
         raise RuntimeError(f"kernels != index_add_ on {what} (max abs err {err})")
     bound = _bound(d_idx)
     print(
         f"[{what}] 2^{n.bit_length() - 1} slots, 2^20 indices: equal, max_abs_err 0; "
         f"sorted kernel {ms['sorted']:.4f} ms (its window partition alone {ms['partition']:.4f} ms), "
-        f"direct kernel {ms['direct']:.4f} ms, plain index_add_ {ms['plain']:.4f} ms, bound "
-        f"{bound['bound_ms']:.5f} ms by {bound['bound_by']}; median of {REPS} [{label}]",
+        f"direct kernel {ms['direct']:.4f} ms, plain index_add_ {ms['plain']:.4f} ms, one bare "
+        f"index_add_ call {ms['library']:.4f} ms, bound {bound['bound_ms']:.5f} ms by "
+        f"{bound['bound_by']}; median of {REPS} [{label}]",
         flush=True,
     )
     del counts
     torch.cuda.empty_cache()
-    return ms
+    return {**ms, **bound}
 
 
 def uniform_vs_plain(log2_slots: int, label: str) -> dict:
@@ -287,9 +302,9 @@ def one_slot_vs_plain(log2_slots: int, label: str) -> dict:
 
 
 def profile_split(log2_slots: int, label: str) -> dict:
-    """Device microseconds per call of each pass of the sorted kernel, by
-    ``torch.profiler``, on the uniform and the one-slot batch; ``None`` for
-    a batch where the profiler saw no device time."""
+    """Device microseconds per call by ``torch.profiler`` on the uniform and
+    the one-slot batch: of each pass of the sorted kernel, and of the direct
+    kernel's launch; ``None`` where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from pantas_tpu_torch.coverage import kernels
@@ -300,27 +315,35 @@ def profile_split(log2_slots: int, label: str) -> dict:
         "uniform": torch.from_numpy(rng.integers(-1, n, size=BATCH, dtype=np.int32)).cuda(),
         "one-slot": torch.full((BATCH,), n // 3, dtype=torch.int32, device="cuda"),
     }
+    scatters = {
+        "sorted": (kernels.sorted_coverage_scatter_add,
+                   ("window_count", "window_scan", "window_scatter", "window_histogram")),
+        "direct": (kernels.coverage_scatter_add, ("direct_scatter",)),
+    }
     counts = torch.zeros(n, dtype=torch.int32, device="cuda")
     out = {}
     for what, d_idx in batches.items():
-        for _ in range(WARM):
-            kernels.sorted_coverage_scatter_add(counts, d_idx)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                kernels.sorted_coverage_scatter_add(counts, d_idx)
+        out[what] = {}
+        for name, (scatter, parts) in scatters.items():
+            for _ in range(WARM):
+                scatter(counts, d_idx)
             torch.cuda.synchronize()
-        split = {}
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "cuda_time_total", 0)
-            for part in ("window_count", "window_scan", "window_scatter", "window_histogram"):
-                if part in ev.key and dev_us:
-                    split[part] = split.get(part, 0.0) + dev_us / calls
-        out[what] = {k: round(v, 1) for k, v in split.items()} or None
-    print(f"[profile] sorted kernel, device us per call by pass, 2^{log2_slots} slots, 2^20 "
-          f"indices, {calls} calls: {json.dumps(out)} [{label}]", flush=True)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    scatter(counts, d_idx)
+                torch.cuda.synchronize()
+            split = {}
+            for ev in prof.key_averages():
+                dev_us = getattr(ev, "device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(ev, "cuda_time_total", 0)
+                for part in parts:
+                    if part in ev.key and dev_us:
+                        split[part] = split.get(part, 0.0) + dev_us / calls
+            out[what][name] = {k: round(v, 1) for k, v in split.items()} or None
+    print(f"[profile] device us per call, sorted kernel by pass and direct kernel, "
+          f"2^{log2_slots} slots, 2^20 indices, {calls} calls: {json.dumps(out)} [{label}]",
+          flush=True)
     del counts, batches
     torch.cuda.empty_cache()
     return out
@@ -564,8 +587,70 @@ def mesh_path(label: str, wd: Path, gfa: Path, gaf: Path, ref_sha: str) -> int:
     return total
 
 
+def real_batches(label: str, gfa: Path, gaf: Path) -> dict:
+    """Phase 9: the stage's own slot batches through both kernels and
+    ``index_add_``. Returns, by picked batch, the timings, the batch's
+    statistics and its bound."""
+    from pantas_tpu_torch.coverage import bench_scatter, kernels
+    from pantas_tpu_torch.graph.compiler import compile_gfa
+    from pantas_tpu_torch.parallel.mesh import scatter_add_counts
+
+    t0 = time.perf_counter()
+    tensors = compile_gfa(str(gfa))
+    batches = bench_scatter.slot_batches(str(gaf), tensors, BATCH)
+    n = max(1 << 12, 1 << (tensors.total_slots - 1).bit_length())  # the stage's bucket
+    parse_s = time.perf_counter() - t0
+    scatters = {
+        "direct": kernels.coverage_scatter_add,
+        "sorted": kernels.sorted_coverage_scatter_add,
+        "plain": scatter_add_counts,
+    }
+    counts = {k: torch.zeros(n, dtype=torch.int32, device="cuda") for k in scatters}
+    before = dict(kernels.LAUNCHES)
+    for batch in batches:
+        d_idx = torch.from_numpy(batch).cuda()
+        for k, scatter in scatters.items():
+            scatter(counts[k], d_idx)
+    torch.cuda.synchronize()
+    rose = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    if set(rose.values()) != {len(batches)}:
+        raise RuntimeError(f"{rose} kernel launches for {len(batches)} real batches")
+    valid = sum(int((b >= 0).sum()) for b in batches)
+    if not (torch.equal(counts["direct"], counts["plain"])
+            and torch.equal(counts["sorted"], counts["plain"])
+            and int(counts["plain"].sum()) == valid):
+        raise RuntimeError("kernels != index_add_ on the real slot batches")
+    print(f"[real] {len(batches)} slot batches of 2^20 from the 1M-read GAF ({parse_s:.2f} s "
+          f"with the tensorize), {valid} valid indices, {tensors.total_slots} slots in a 2^"
+          f"{n.bit_length() - 1} bucket: direct kernel == sorted kernel == index_add_ "
+          f"[{label}]", flush=True)
+
+    out = {}
+    picks = {"first": 0, "middle": len(batches) // 2, "last": len(batches) - 1}
+    for which, i in picks.items():
+        d_idx = torch.from_numpy(batches[i]).cuda()
+        counts["library"] = counts["plain"].clone()
+        l_idx, l_ones = _library_args(d_idx)
+        ms = _timed_ms({
+            **{k: (lambda k=k: scatters[k](counts[k], d_idx)) for k in scatters},
+            "library": lambda: counts["library"].index_add_(0, l_idx, l_ones),
+        })
+        torch.cuda.synchronize()
+        if not all(torch.equal(counts[k], counts["plain"]) for k in counts):
+            raise RuntimeError(f"kernels != index_add_ after the timed calls on real batch {i}")
+        stats, bound = bench_scatter.batch_stats(batches[i]), _bound(d_idx)
+        print(f"[real] batch {i} ({which}): direct kernel {ms['direct']:.4f} ms, sorted kernel "
+              f"{ms['sorted']:.4f} ms, plain index_add_ {ms['plain']:.4f} ms, one bare "
+              f"index_add_ call {ms['library']:.4f} ms, bound {bound['bound_ms']:.5f} ms by "
+              f"{bound['bound_by']}; {json.dumps(stats)}; median of {REPS} [{label}]", flush=True)
+        out[which] = {"batch": i, **ms, **bound, **stats}
+    del counts
+    torch.cuda.empty_cache()
+    return out
+
+
 def isolation() -> None:
-    """Phase 9: nothing of the JAX package, and no jax, was loaded."""
+    """Phase 10: nothing of the JAX package, and no jax, was loaded."""
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("pantas_tpu", "jax"))
     print(json.dumps({"phase": "isolation", "ok": not foreign,
@@ -692,10 +777,13 @@ def main() -> int:
     cached = _build.library_path().exists()
     lib = _build.build()
     grid = _build.load().coverage_histogram_grid(torch.cuda.current_device())
-    if grid <= 0:
-        raise RuntimeError(f"coverage_histogram_grid failed ({grid})")
+    direct_grid = _build.load().coverage_direct_grid(torch.cuda.current_device())
+    if grid <= 0 or direct_grid <= 0:
+        raise RuntimeError(f"coverage_histogram_grid ({grid}) or coverage_direct_grid "
+                           f"({direct_grid}) failed")
     print(f"[build] {lib.relative_to(REPO)} in {time.perf_counter() - t0:.2f} s"
-          f"{' (already built)' if cached else ''}; persistent histogram grid {grid} CTAs "
+          f"{' (already built)' if cached else ''}; persistent grids: histogram {grid} CTAs, "
+          f"direct kernel {direct_grid} CTAs, "
           f"on {torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
     ptxas = lib.with_suffix(".log")
     if ptxas.exists():
@@ -713,9 +801,8 @@ def main() -> int:
 
     shapes = [kernel_vs_plain(25, 25, label), kernel_vs_plain(28, 28, label)]
     direct = [direct_vs_plain(25, 25, label), direct_vs_plain(28, 28, label)]
-    uniform_vs_plain(25, label)
-    uniform_vs_plain(28, label)
-    one_slot_vs_plain(25, label)
+    uniform = [uniform_vs_plain(25, label), uniform_vs_plain(28, label)]
+    one_slot = [one_slot_vs_plain(25, label), one_slot_vs_plain(28, label)]
     wd, gfa, gaf = _inputs()
     launches, ref_sha, aug = main_path(label, wd, gfa, gaf)
     try:
@@ -723,9 +810,10 @@ def main() -> int:
         race_path(label, wd, gfa, gaf, ref_sha)
         call_path(label, wd, aug)
         mesh_launches = mesh_path(label, wd, gfa, gaf, ref_sha)
+        real = real_batches(label, gfa, gaf)
     finally:
         aug.unlink()
-    profile_split(25, label)
+    device_us = profile_split(25, label)
     profile_split(28, label)
     isolation()
 
@@ -754,6 +842,11 @@ def main() -> int:
         "bound_ms": direct[0]["bound_ms"],
         "bound_by": direct[0]["bound_by"],
         "library_ms": direct[0]["library_ms"],
+        # beyond the smoke batch, at 2^25: [kernel, one bare index_add_, bound] ms
+        "uniform_ms": [uniform[0]["direct"], uniform[0]["library"], uniform[0]["bound_ms"]],
+        "one_slot_ms": [one_slot[0]["direct"], one_slot[0]["library"], one_slot[0]["bound_ms"]],
+        "real_batch_ms": {k: [v["direct"], v["library"], v["bound_ms"]] for k, v in real.items()},
+        "device_us": {k: (v["direct"] or {}).get("direct_scatter") for k, v in device_us.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -21,15 +21,16 @@ def device(name) -> torch.device:
 
 
 def devices(name, n: int = 1) -> list:
-    """The first ``n`` devices of type ``name`` for ``call --mesh n``:
-    ``min(n, device_count())`` cards for CUDA, and the one CPU device for
-    ``cpu``. When there are fewer than ``n`` it prints the JAX CLI's warning
-    and uses what there is; CUDA without a card raises."""
+    """``n`` devices of type ``name`` for ``call --mesh n``. CUDA: the first
+    ``min(n, device_count())`` cards; when there are fewer than ``n`` it
+    prints the JAX CLI's warning and uses what there is. ``cpu``: the CPU
+    device ``n`` times, a logical mesh as :func:`mesh_devices` gives
+    ``augment``, so that the candidate axis is sharded on the CPU as the JAX
+    CLI shards it over forced host devices. CUDA without a card raises."""
     dev = device(name)
-    if dev.type == "cuda":
-        out = [torch.device("cuda", i) for i in range(min(n, torch.cuda.device_count()))]
-    else:
-        out = [dev]
+    if dev.type != "cuda":
+        return [dev] * n
+    out = [torch.device("cuda", i) for i in range(min(n, torch.cuda.device_count()))]
     if len(out) < n:
         print(
             f"[call] WARNING: --mesh {n} requested but only {len(out)} device(s) "

@@ -231,8 +231,8 @@ def _cmd_call(argv):
     )
     ap.add_argument(
         "--mesh", type=int, default=None,
-        help="device engine: shard the candidate axis over N cards (same "
-        "rows for any N)",
+        help="device engine: shard the candidate axis over N cards, or with "
+        "--device cpu over N logical shards (same rows for any N)",
     )
     ap.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",

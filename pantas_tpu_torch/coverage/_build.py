@@ -3,8 +3,9 @@
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
 source, all started together, and links the objects into one library in
 ``build/kernels/`` at the root of the checkout, once per content hash of the
-sources and flags; the library has a plain C interface and is loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
+sources, the headers they include and the flags; the library has a plain C
+interface and is loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds, not minutes).
 Nothing here runs at import time: the first kernel launch builds.
 """
 
@@ -36,10 +37,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (needs the CUDA toolkit) to build the port's kernels")
 
 
+def _hashed_files() -> list:
+    """Every file of ``csrc/`` that a build reads: the sources and the
+    headers they include (only ``*.cu`` is compiled)."""
+    return sorted(f for pat in ("*.cu", "*.cuh", "*.h") for f in CSRC.glob(pat))
+
+
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in _hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpantas_kernels_{h.hexdigest()[:16]}.so"
@@ -102,7 +109,9 @@ def load() -> ctypes.CDLL:
         lib.coverage_window_partition.restype = i32
         lib.coverage_scatter_sorted.argtypes = [i32, vp, i64, vp, i64, i32, *[vp] * 7]
         lib.coverage_scatter_sorted.restype = i32
-        lib.coverage_scatter_direct.argtypes = [vp, ctypes.c_int64, vp, ctypes.c_int64, vp]
-        lib.coverage_scatter_direct.restype = ctypes.c_int
+        lib.coverage_direct_grid.argtypes = [i32]
+        lib.coverage_direct_grid.restype = i32
+        lib.coverage_scatter_direct.argtypes = [i32, vp, i64, vp, i64, vp]
+        lib.coverage_scatter_direct.restype = i32
         _lib = lib
     return _lib

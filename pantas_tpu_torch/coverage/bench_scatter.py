@@ -12,12 +12,18 @@ CUDA card:
 It prints the card's ``name, power.limit``, then one JSON line per impl and
 stream size. An impl that fails or verifies wrong raises: the exit code is
 non-zero.
+
+:func:`slot_batches` and :func:`batch_stats` serve the measurements on real
+traffic (``chip_smoke.py``, ``bench_direct``): the slot batches of a GAF as the
+augment stage would hand them to the scatter, and what a batch looks like.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+
+import numpy as np
 
 from pantas_tpu_torch import backend
 from pantas_tpu_torch.coverage.scatter_impls import raw_race
@@ -34,6 +40,51 @@ def run(n_slots: int, streams, device):
                 "best_s": round(t["best_s"], 6),
                 "m_idx_per_s": round(m / t["best_s"] / 1e6, 1),
             }
+
+
+def slot_batches(gaf_path: str, tensors, flush_every: int = 1 << 20, mapq_thr=None) -> list:
+    """The int32 slot batches of ``gaf_path`` on the graph ``tensors``, on the
+    host, exactly as ``augment --engine device`` streams them to the scatter
+    (``coverage.device.augment_gfa_device_native``): the native parser
+    fills buffers of ``flush_every`` indices, the last padded with ``-1``."""
+    from pantas_tpu_torch.coverage import device
+
+    eng = device._native_engine(tensors)
+    thr = device.DEFAULT_MAPQ_THR if mapq_thr is None else mapq_thr
+    sess = eng.slots_begin(gaf_path, 0, -1, thr)
+    batches = []
+    try:
+        while True:
+            buf = np.empty(flush_every, dtype=np.int32)
+            n = eng.slots_next(sess, buf)
+            if n == 0:
+                return batches
+            buf[n:] = -1
+            batches.append(buf)
+    finally:
+        eng.slots_end(sess)
+
+
+def batch_stats(idx: np.ndarray) -> dict:
+    """What a slot batch looks like to a scatter: its valid indices, distinct
+    slots, distinct 32-byte sectors of int32 counts, the longest run of equal
+    neighbours, and the share of valid indices that equal their left
+    neighbour."""
+    valid = idx >= 0
+    slots = np.unique(idx[valid])
+    change = np.flatnonzero(np.diff(idx) != 0) + 1
+    starts = np.concatenate([[0], change])
+    lengths = np.diff(np.concatenate([starts, [len(idx)]]))
+    kept = valid[starts]  # a run of padding is no run of slots
+    n_valid = int(valid.sum())
+    repeats = int((valid[1:] & (idx[1:] == idx[:-1])).sum())
+    return {
+        "valid": n_valid,
+        "distinct_slots": int(len(slots)),
+        "distinct_sectors": int(len(np.unique(slots >> 3))),
+        "longest_run": int(lengths[kept].max()) if kept.any() else 0,
+        "equal_left_share": round(repeats / n_valid, 4) if n_valid else 0.0,
+    }
 
 
 def main(argv=None) -> int:

@@ -10,9 +10,13 @@ Two hand-written kernels, each with its plain PyTorch version:
   added into its slots by a persistent grid of CTAs
   (``csrc/coverage_scatter.cu``; one C call per batch).
 - :func:`coverage_scatter_add` replaces
-  ``pantas_tpu/coverage/pallas_kernel.py::coverage_scatter_add``: one global
-  atomic add per index, no partition (``csrc/coverage_direct.cu``). Its
-  batches are a multiple of :data:`BLOCK`, as the TPU kernel's are.
+  ``pantas_tpu/coverage/pallas_kernel.py::coverage_scatter_add``: no
+  partition; a persistent grid reads the batch with 16-byte streaming loads,
+  each warp lays its 128 consecutive indices out so that the lanes of one
+  atomic instruction hold neighbouring indices, folds each run of equal
+  neighbours with shuffles and ballots, and adds each run once with a global
+  atomic (``csrc/coverage_direct.cu``). Its batches are a multiple of
+  :data:`BLOCK`, as the TPU kernel's are.
 
 On the card both are bound by memory traffic, not by arithmetic: the counts
 vector reaches 1 GiB at genome scale while a batch holds 2^20 indices, so
@@ -213,21 +217,27 @@ def coverage_scatter_add_plain(counts: torch.Tensor, idx: torch.Tensor) -> torch
 
 
 def coverage_scatter_add(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``counts[idx] += 1`` for ``0 <= idx < n`` (``-1`` is padding), in
-    place; ``idx.numel()`` must be a multiple of :data:`BLOCK`.
+    """``counts[idx] += 1`` for ``0 <= idx < n`` (any negative index is
+    padding), in place; ``idx.numel()`` must be a multiple of :data:`BLOCK`.
 
-    On a CUDA tensor this launches the direct kernel on the current stream
+    ``idx`` may be a contiguous view that starts at any element of its
+    storage: the kernel reads the batch as 16-byte vectors from the first
+    aligned address and takes the few indices before and after them one by
+    one, so a misaligned batch is neither refused nor copied.
+
+    On a CUDA tensor this makes ``counts``' device current, launches the
+    direct kernel on that device's current stream with no synchronisation,
     and raises if the launch fails; on a CPU tensor it runs
     :func:`coverage_scatter_add_plain`. Any other device raises.
     """
-    if counts.device.type == "cpu":
+    dev = counts.device
+    if dev.type == "cpu":
         return coverage_scatter_add_plain(counts, idx)
     _check_cuda(counts)
     n = _check_direct(counts, idx)
     lib = _lib()
     err = lib.coverage_scatter_direct(
-        counts.data_ptr(), n, idx.data_ptr(), idx.numel(),
-        _stream(counts.device),
+        dev.index, counts.data_ptr(), n, idx.data_ptr(), idx.numel(), _stream(dev),
     )
     _raise_on(lib, err, "coverage_scatter_direct")
     LAUNCHES["coverage_scatter_add"] += 1

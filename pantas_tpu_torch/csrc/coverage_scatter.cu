@@ -58,7 +58,12 @@
 #include <cstdint>
 #include <mutex>
 
+#include "device_guard.cuh"
+
 namespace {
+
+using pantas_kernels::DeviceGuard;
+using pantas_kernels::kMaxDevices;
 
 constexpr int kWindowShift = 14;
 constexpr int kWindow = 1 << kWindowShift;  // slots per window: the TPU kernel's W_TILES * 1024
@@ -72,7 +77,6 @@ constexpr int kScanPer = 8;                 // windows a scan thread takes a rou
 constexpr int kScanRound = kScanThreads * kScanPer;
 constexpr int kHistThreads = 512;
 constexpr int kPerThread = kChunk / kHistThreads;
-constexpr int kMaxDevices = 64;
 constexpr unsigned kAll = 0xffffffffu;
 
 static_assert(kChunk % kHistThreads == 0, "an item's entries split evenly over the threads");
@@ -380,24 +384,6 @@ cudaError_t setup(int dev, DeviceSetup* out) {
   *out = d;
   return cudaSuccess;
 }
-
-// Makes `dev` current for the launches and restores the caller's device.
-class DeviceGuard {
- public:
-  explicit DeviceGuard(int dev) {
-    err_ = cudaGetDevice(&prev_);
-    if (err_ == cudaSuccess && prev_ != dev) err_ = cudaSetDevice(dev);
-  }
-  ~DeviceGuard() {
-    int now = -1;
-    if (prev_ >= 0 && cudaGetDevice(&now) == cudaSuccess && now != prev_) cudaSetDevice(prev_);
-  }
-  cudaError_t err() const { return err_; }
-
- private:
-  int prev_ = -1;
-  cudaError_t err_ = cudaSuccess;
-};
 
 // Passes 1-3 with at most `ctas` partition CTAs. win_count has n_windows + 1
 // entries; cta_off has ctas * n_windows when n_windows <= kCountCap;

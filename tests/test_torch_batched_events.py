@@ -326,22 +326,71 @@ def test_cli_device_errors_propagate(micro, tmp_path, monkeypatch):
                   "-o", str(tmp_path / "o.csv")])
 
 
-def test_cli_mesh_uses_the_devices_there_are(micro, tmp_path, capsys):
-    gfa, gtf = micro["cassette"][:2]
-    out = tmp_path / "o.csv"
+def _cli_mesh_on_cpu(n, case, out, monkeypatch):
+    """``call --engine device --device cpu --mesh n`` on ``case`` into
+    ``out``; returns the number of devices each evaluation was split over."""
+    gfa, gtf = case[:2]
+    split = []
+    inner = port._eval_match
+
+    def spy(match, tables, index_arrays, devices=None):
+        split.append(len(devices))
+        return inner(match, tables, index_arrays, devices)
+
+    monkeypatch.setattr(port, "_eval_match", spy)
     port.EVALS.clear()
-    assert cli.main(["call", "--engine", "device", "--device", "cpu", "--mesh", "4",
+    assert cli.main(["call", "--engine", "device", "--device", "cpu", "--mesh", str(n),
                      "--rca", "0", "--novel", gfa, gtf, "-o", str(out)]) == 0
-    assert "--mesh 4 requested but only 1 device(s) available" in capsys.readouterr().err
+    return split
+
+
+def test_cli_mesh_uses_the_devices_there_are(micro, tmp_path, capsys, monkeypatch):
+    """On the CPU ``--mesh 4`` is a logical mesh of 4, with no warning, as
+    ``augment --device cpu --mesh 4`` is."""
+    out = tmp_path / "o.csv"
+    split = _cli_mesh_on_cpu(4, micro["cassette"], out, monkeypatch)
+    assert "WARNING" not in capsys.readouterr().err
+    assert split and set(split) == {4}
     assert port.EVALS and {dev for _, dev in port.EVALS} == {"cpu"}
     assert sorted(out.read_text().splitlines()) == \
         _rows(call_events, micro["cassette"], CallOptions(rca=0, novel=True))
 
 
+@pytest.mark.parametrize("fixture", ["splice", "cassette"])
+@pytest.mark.parametrize("n", [2, 8])
+def test_cli_mesh_shards_the_candidates_on_the_cpu(n, fixture, micro, tmp_path, monkeypatch):
+    """Every evaluation of the run is split over ``n`` shards, and the rows
+    equal the host caller's (one process, so one hash seed)."""
+    out = tmp_path / "o.csv"
+    split = _cli_mesh_on_cpu(n, micro[fixture], out, monkeypatch)
+    assert split and set(split) == {n}
+    assert sorted(out.read_text().splitlines()) == \
+        _rows(call_events, micro[fixture], CallOptions(rca=0, novel=True))
+
+
+def test_cli_mesh_rows_equal_the_host_cli_under_one_hash_seed(micro, tmp_path):
+    """Both CLIs in subprocesses under ``PYTHONHASHSEED=0``: the device
+    engine on a logical CPU mesh of 2 and of 8 against the host caller."""
+    gfa, gtf = micro["cassette"][:2]
+    env = {**os.environ, "PYTHONHASHSEED": "0", "JAX_PLATFORMS": "cpu"}
+
+    def rows(*argv):
+        proc = subprocess.run([sys.executable, "-m", *argv, "--rca", "0", "--novel", gfa, gtf],
+                              capture_output=True, text=True, cwd=REPO_ROOT, env=env, check=True)
+        return sorted(proc.stdout.splitlines())
+
+    host = rows("pantas_tpu", "call")
+    assert len(host) > 1
+    for n in ("2", "8"):
+        assert rows("pantas_tpu_torch", "call", "--engine", "device", "--device", "cpu",
+                    "--mesh", n) == host, n
+
+
 def test_backend_devices(monkeypatch, capsys):
     assert backend.devices("cpu") == [CPU]
-    assert backend.devices("cpu", 3) == [CPU]
-    assert "--mesh 3 requested but only 1 device(s)" in capsys.readouterr().err
+    assert backend.devices("cpu", 3) == [CPU] * 3  # a logical mesh, as mesh_devices gives
+    assert backend.devices("cpu", 3) == backend.mesh_devices("cpu", 3)
+    assert capsys.readouterr().err == ""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     assert backend.devices("cuda", 1) == [torch.device("cuda", 0)]

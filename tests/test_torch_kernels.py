@@ -60,6 +60,33 @@ def _case(name):
         idx[::5] = -2
         idx[1::7] = -7
         idx[2::11] = np.iinfo(np.int32).min
+    elif name == "runs-cross-block":
+        n = 5000  # long runs of equal neighbours, over the 2,048 boundary and to the batch's end
+        idx = np.repeat(rng.integers(0, n, size=64, dtype=np.int32),
+                        rng.integers(1, 300, size=64))[:4096]
+        idx = np.resize(idx, 4096).astype(np.int32)
+        idx[:130] = 0  # longer than a warp's 128 consecutive indices
+        idx[1900:2200] = 77
+        idx[2200:2204] = [78, 78, 77, 77]  # the same slot again after a break
+        idx[4000:] = n - 1
+    elif name == "equal-far-apart":
+        n = 40000  # equal slots 61 places apart, and slots equal modulo 256, 4,096 and 8,192
+        slots = np.concatenate([5 + 256 * np.arange(20), 9 + 4096 * np.arange(9),
+                                [5 + 8192, 5 + 16384, 5 + 32768], rng.integers(0, n, size=29)])
+        idx = slots[np.arange(4096) % len(slots)].astype(np.int32)
+        idx[rng.random(4096) < 0.05] = -1
+    elif name == "past-n":
+        n = 5000  # slots at and past n are dropped (the direct scatters only)
+        idx = rng.integers(-1, n + 50, size=2048, dtype=np.int32)
+        idx[100:140] = n
+        idx[140:150] = n - 1
+        idx[500:520] = [n + 1, 8191, 8192, np.iinfo(np.int32).max] * 5
+    elif name == "at-n":
+        n = 5000  # slots at and just past n, inside the TPU kernel's last (8, 128) tile of counts
+        idx = rng.integers(-1, n, size=2048, dtype=np.int32)
+        idx[100:140] = n
+        idx[140:150] = n - 1
+        idx[500:520] = [n + 1, n + 119] * 10
     else:
         raise KeyError(name)
     counts = rng.integers(0, 5, size=n, dtype=np.int32)
@@ -68,11 +95,13 @@ def _case(name):
 
 CASES = ["mix-5000x4096", "mix-40000x8192", "mix-131072x16384",
          "all-padding", "last-slot", "all-equal", "below-one-window",
-         "heavy-window", "negatives"]
+         "heavy-window", "negatives", "runs-cross-block", "equal-far-apart"]
+# the direct scatters also mask at n, as the XLA scatter drops what is out of bounds
+DIRECT_CASES = [*CASES, "at-n", "past-n"]
 
 
 def _expected(counts, idx):
-    valid = idx[idx >= 0]
+    valid = idx[(idx >= 0) & (idx < len(counts))]
     return counts + np.bincount(valid, minlength=len(counts)).astype(np.int32)
 
 
@@ -95,7 +124,7 @@ def test_port_scatter_matches_pallas_and_xla(case):
     assert np.array_equal(plain, expect)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", DIRECT_CASES)
 def test_port_direct_scatter_matches_xla(case):
     counts, idx = _case(case)
     xla = np.asarray(jax.jit(xla_scatter_add)(jnp.asarray(counts), jnp.asarray(idx)))
@@ -115,6 +144,24 @@ def test_direct_scatter_refuses_batches_off_the_block_in_both_packages():
     for fn in (kernels.coverage_scatter_add, kernels.coverage_scatter_add_plain):
         with pytest.raises(ValueError, match=str(kernels.BLOCK)):
             fn(torch.from_numpy(counts), torch.from_numpy(idx))
+
+
+@pytest.mark.parametrize("case", ["mix-5000x4096", "runs-cross-block", "past-n"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_direct_scatter_takes_a_batch_off_the_16_byte_boundary(case, offset):
+    """A contiguous view that starts ``offset`` int32 into its storage is a
+    batch like any other: not refused, not copied, same counts. (On the CPU
+    the wrapper runs its plain version; the card's test is
+    ``test_cuda_direct_kernel_on_a_misaligned_view``.)"""
+    counts, idx = _case(case)
+    storage = torch.from_numpy(np.concatenate([np.full(offset, 7, np.int32), idx]))
+    view = storage[offset:]
+    assert view.is_contiguous() and view.data_ptr() == storage.data_ptr() + 4 * offset
+    assert view.data_ptr() % 16 != storage.data_ptr() % 16
+    before = storage.clone()
+    got = kernels.coverage_scatter_add(torch.from_numpy(counts.copy()), view).numpy()
+    assert np.array_equal(got, _expected(counts, idx))
+    assert torch.equal(storage, before)
 
 
 def test_direct_scatter_in_place_drops_padding_and_slots_past_n():
@@ -279,17 +326,91 @@ def test_cuda_count_pass_above_the_shared_cap(cuda):
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
 
 
+def _direct_once(counts, idx):
+    """The direct kernel once, checking that it counted exactly one launch."""
+    before = kernels.LAUNCHES["coverage_scatter_add"]
+    kernels.coverage_scatter_add(counts, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["coverage_scatter_add"] == before + 1
+
+
 @pytest.mark.cuda
 def test_cuda_direct_kernel_matches_plain(cuda):
-    for case in CASES:
+    for case in DIRECT_CASES:
         counts, idx = _case(case)
         d_idx = torch.from_numpy(idx).to(cuda)
-        got = torch.from_numpy(counts).to(cuda)
-        want = got.clone()
-        before = kernels.LAUNCHES["coverage_scatter_add"]
-        kernels.coverage_scatter_add(got, d_idx)
+        want = torch.from_numpy(counts).to(cuda)
         kernels.coverage_scatter_add_plain(want, d_idx)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES["coverage_scatter_add"] == before + 1
+        assert np.array_equal(want.cpu().numpy(), _expected(counts, idx)), case
+        got = torch.from_numpy(counts).to(cuda)
+        _direct_once(got, d_idx)
         assert torch.equal(got, want), case
-        assert np.array_equal(got.cpu().numpy(), _expected(counts, idx)), case
+
+
+@pytest.mark.cuda
+def test_cuda_direct_kernel_on_one_slot_and_long_runs(cuda):
+    """2^20 indices all on one slot; 2^24 indices (every warp of the
+    persistent grid takes many rounds of its loop) in runs of 1 to 5,000
+    equal neighbours, which cross lanes, rows, steps, CTAs and rounds; 97
+    slots 16,384 apart, each named ~10,000 times, far from each other; a
+    batch of BLOCK indices; all padding. Exact against index_add_."""
+    rng = np.random.default_rng(20)
+    n, m = 1 << 22, 1 << 20
+    runs = np.repeat(rng.integers(-1, n, size=8192, dtype=np.int32),
+                     rng.integers(1, 5000, size=8192))[: 1 << 24]
+    assert len(runs) == 1 << 24
+    far_apart = (3 + (1 << 14) * rng.integers(0, 97, size=m)).astype(np.int32)
+    batches = {
+        "one-slot": np.full(m, n // 3, dtype=np.int32),
+        "runs": runs,
+        "far-apart": far_apart,
+        "one-block": rng.integers(-1, n, size=kernels.BLOCK, dtype=np.int32),
+        "all-padding": np.full(m, -1, dtype=np.int32),
+    }
+    for what, idx in batches.items():
+        d_idx = torch.from_numpy(idx).to(cuda)
+        want = torch.zeros(n, dtype=torch.int32, device=cuda)
+        scatter_add_counts(want, d_idx)
+        assert int(want.sum()) == int((idx >= 0).sum()), what
+        got = torch.zeros(n, dtype=torch.int32, device=cuda)
+        _direct_once(got, d_idx)
+        assert torch.equal(got, want), what
+
+
+@pytest.mark.cuda
+def test_cuda_direct_kernel_on_a_misaligned_view(cuda):
+    """The batch starts 4, 8 and 12 bytes past a 16-byte boundary: the
+    kernel takes the head and the tail one by one; nothing is copied."""
+    rng = np.random.default_rng(16)
+    n, m = 100_000, 4 * kernels.BLOCK
+    for offset in (1, 2, 3):
+        idx = rng.integers(-1, n, size=m + offset, dtype=np.int32)
+        idx[offset : offset + 300] = 4242  # a run that starts in the scalar head
+        idx[-200:] = 99_999  # and one that ends in the scalar tail
+        view = torch.from_numpy(idx).to(cuda)[offset:]
+        assert view.data_ptr() % 16 == 4 * offset and view.numel() == m
+        want = torch.zeros(n, dtype=torch.int32, device=cuda)
+        scatter_add_counts(want, view)
+        got = torch.zeros(n, dtype=torch.int32, device=cuda)
+        _direct_once(got, view)
+        assert torch.equal(got, want), offset
+
+
+@pytest.mark.cuda
+def test_cuda_direct_kernel_makes_the_tensors_device_current(cuda):
+    """``counts`` on ``cuda:1`` while ``cuda:0`` is current: the kernel runs
+    on ``cuda:1``'s stream and the caller's device is current afterwards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: one card cannot show a missing device guard")
+    other = torch.device("cuda", 1)
+    rng = np.random.default_rng(21)
+    n = 100_000
+    idx = torch.from_numpy(rng.integers(-1, n, size=4 * kernels.BLOCK, dtype=np.int32)).to(other)
+    got = torch.zeros(n, dtype=torch.int32, device=other)
+    want = got.clone()
+    with torch.cuda.device(0):
+        _direct_once(got, idx)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(other)
+    scatter_add_counts(want, idx)
+    assert torch.equal(got, want)
