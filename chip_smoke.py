@@ -71,6 +71,22 @@ Run from the root of a checkout, on a machine with a CUDA card:
    its bound. It decides nothing: the default scatter stays as it is.
 10. Isolation: no module named ``pantas_tpu``, ``pantas_tpu.*``, ``jax`` or
     ``jax.*`` was loaded by anything above.
+11. The multi-process augment at the same 10 Mbp / 1M-read cell: the ranks
+    are subprocesses of ``python -m pantas_tpu_torch augment-dist`` (through
+    a probe that reports each rank's foreign modules), first 1 rank, then 2
+    ranks on the one card. Each GFA's sha256 must equal phase 3's; every rank
+    must show the CUDA sorted scatter, no fallback, the native feed and as
+    many kernel launches as batches (its warm-up batch included); the ranks'
+    real batches must sum to at least phase 3's; the 1-rank log must name the
+    NCCL reduction and the 2-rank log the gloo one with its reason; no
+    sidecar file may be left. Two ranks on one card show the arithmetic, the
+    barriers and two CUDA contexts sharing a card: nothing about scaling.
+12. The other entry points: ``replicate --rca 0`` on the GAF, the
+    un-augmented GFA and the GTF, its sorted rows equal to phase 6's host
+    ``call`` rows of the augmented GFA (one process, so one hash seed);
+    ``graft_entry.entry()`` on the card against ``np.bincount``;
+    ``graft_entry.dryrun_multichip(4)`` on a logical mesh of the one card,
+    and, asked for 4 cards where there are fewer, its refusal.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -84,7 +100,10 @@ import hashlib
 import io
 import json
 import os
+import re
+import socket
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -99,6 +118,7 @@ N_READS = 1_000_000
 BATCH = 1 << 20
 REPS = 25
 WARM = 3
+RANKS_TIMEOUT_S = 420  # one augment-dist run, every rank together
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the float32
 # rate outside the tensor cores, taken for the kernels' int32 adds
 HBM_BYTES_PER_S = 3.35e12
@@ -709,10 +729,11 @@ def _sorted_rows(path: Path) -> list:
     return rows
 
 
-def call_path(label: str, wd: Path, aug: Path) -> None:
+def call_path(label: str, wd: Path, aug: Path) -> list:
     """Phase 6: events on the device-augmented 10 Mbp GFA, host engine then
     device engine through the port's CLI; then the micro fixtures with
-    ``--novel``, so that the novel finders run on the card too."""
+    ``--novel``, so that the novel finders run on the card too. Returns the
+    host engine's sorted rows on the 10 Mbp GFA."""
     from pantas_tpu_torch import cli
 
     gtf = wd / "g.gtf"
@@ -758,6 +779,163 @@ def call_path(label: str, wd: Path, aug: Path) -> None:
         raise RuntimeError(f"the micro fixtures evaluated no {sorted(missing)} on the card")
     print(f"[call] micro fixtures splice, cassette with --rca 0 --novel: rows equal to the "
           f"host's; candidates on cuda {novel} [{label}]", flush=True)
+    return host
+
+
+# what a rank runs: the port's CLI, then a report of what it loaded
+RANK_PROBE = """
+import json, sys
+from pantas_tpu_torch import cli
+rc = cli.main(json.loads(sys.argv[1]))
+foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("pantas_tpu", "jax"))
+print(json.dumps({"rc": rc, "foreign": foreign}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def _run_ranks(n: int, gaf: Path, gfa: Path, out: Path) -> tuple:
+    """One ``augment-dist`` run of ``n`` ranks, each a subprocess on the first
+    card. The first rank that fails, or the time limit, kills the others.
+    Returns (each rank's log, wall seconds)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("PANTAS_SCATTER", None)
+    logs = [out.with_name(f"{out.name}.rank{i}.log") for i in range(n)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i, path in enumerate(logs):
+            argv = ["augment-dist", str(gaf), str(gfa), "-o", str(out), "--coordinator",
+                    f"127.0.0.1:{port}", "--nprocs", str(n), "--procid", str(i)]
+            with open(path, "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", RANK_PROBE, json.dumps(argv)], env=env, cwd=REPO,
+                    stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL, stderr=fh))
+        while any(p.poll() is None for p in procs):
+            failed = [i for i, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() - t0 > RANKS_TIMEOUT_S:
+                why = f"rank {failed[0]} failed" if failed else "timed out"
+                raise RuntimeError(f"augment-dist with {n} ranks {why}: "
+                                   + " | ".join(p.read_text()[-1500:] for p in logs))
+            time.sleep(0.1)
+        wall = time.perf_counter() - t0
+        texts = [p.read_text() for p in logs]
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"augment-dist with {n} ranks: exit codes "
+                               f"{[p.returncode for p in procs]}: {texts[-1][-1500:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for path in logs:
+            path.unlink(missing_ok=True)
+    return texts, wall
+
+
+def dist_path(label: str, wd: Path, gfa: Path, gaf: Path, ref_sha: str, batches: int) -> int:
+    """Phase 11: ``augment-dist`` with 1 rank, then with 2 ranks on the one
+    card. Returns the ranks' kernel launches of both runs together."""
+    out = wd / "smoke_dist.gfa"
+    reductions = {1: "reduction: nccl on cuda:0",
+                  2: "reduction: gloo on the host vector (2 ranks share GPU-"}
+    total = 0
+    for n, reduction in reductions.items():
+        logs, wall = _run_ranks(n, gaf, gfa, out)
+        sha = _sha256(out)
+        out.unlink()
+        if sha != ref_sha:
+            raise RuntimeError(f"augment-dist, {n} ranks: GFA {sha} != native engine's {ref_sha}")
+        left = sorted(p.name for p in wd.iterdir() if p.name.startswith(".augshard"))
+        if left:
+            raise RuntimeError(f"augment-dist, {n} ranks: sidecar files left: {left}")
+        ranks = []
+        for i, log in enumerate(logs):
+            report = json.loads(log.strip().splitlines()[-1])
+            if report != {"rc": 0, "foreign": []}:
+                raise RuntimeError(f"augment-dist rank {i} of {n}: {report}")
+            if ("[device] scatter impl: cuda-sorted (" not in log or "fallback" in log
+                    or "python feed" in log or f"[augment-dist] {reduction}" not in log):
+                raise RuntimeError(f"augment-dist rank {i} of {n}: the log does not show the "
+                                   f"CUDA scatter, the native feed and '{reduction}': {log[-1500:]}")
+            launched, fed = map(int, re.search(
+                r"\[device\] kernel launches: (\d+) \(batches: (\d+)\)", log).groups())
+            if not launched == fed >= 2:
+                raise RuntimeError(f"augment-dist rank {i} of {n}: {launched} kernel launches "
+                                   f"for {fed} batches")
+            accum_s = float(re.search(
+                rf"\[augment-dist\] proc {i}: accumulate ([0-9.]+)s", log).group(1))
+            reduced = re.search(rf"proc {i}: (\d+) bytes reduced over \w+ in ([0-9.]+)s", log)
+            ranks.append({"launches": launched, "accum_s": accum_s,
+                          "reduced_bytes": int(reduced.group(1)),
+                          "reduce_s": float(reduced.group(2))})
+        real = sum(r["launches"] - 1 for r in ranks)  # without each rank's warm-up batch
+        if real < batches:
+            raise RuntimeError(f"augment-dist, {n} ranks: {real} real batches, the single "
+                               f"device ran {batches}")
+        emit_s = float(re.search(r"proc 0: merge and emit ([0-9.]+)s", logs[0]).group(1))
+        line = next(ln for ln in logs[0].splitlines() if "[augment-dist] reduction:" in ln)
+        print(f"[dist] augment-dist, {n} rank(s) on one card: stage wall {wall:.3f} s, per rank "
+              f"{json.dumps(ranks)} (launches = batches, the warm-up batch included; {real} real "
+              f"batches, {batches} on the single device), rank 0 merge and emit {emit_s:.2f} s, "
+              f"{line.split('] ', 1)[1]}, no sidecar left, no foreign module, sha256 == native "
+              f"engine's; ranks sharing a card measure nothing about scaling [{label}]",
+              flush=True)
+        total += sum(r["launches"] for r in ranks)
+    return total
+
+
+def entry_points(label: str, wd: Path, gfa: Path, gaf: Path, call_rows: list) -> None:
+    """Phase 12: ``replicate`` against phase 6's host rows, then the
+    entry points of ``graft_entry`` on the card."""
+    from pantas_tpu_torch import cli, graft_entry
+    from pantas_tpu_torch.coverage import kernels
+
+    rows = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(rows):
+        rc = cli.main(["replicate", "--rca", "0", str(gaf), str(gfa), str(wd / "g.gtf")])
+    replicate_s = time.perf_counter() - t0
+    got = sorted(rows.getvalue().splitlines())
+    if rc or got != call_rows:
+        raise RuntimeError(f"replicate exited {rc}; {len(got)} rows, the staged augment and "
+                           f"call gave {len(call_rows)}")
+    print(f"[entry] replicate --rca 0 on the un-augmented 10 Mbp GFA: {replicate_s:.3f} s, "
+          f"{len(got)} sorted rows equal to the host call's on the augmented GFA [{label}]",
+          flush=True)
+
+    fn, (counts, idx) = graft_entry.entry()
+    if counts.device.type != "cuda" or idx.device.type != "cuda":
+        raise RuntimeError("graft_entry.entry() did not place its arguments on the card")
+    got = fn(counts, idx).cpu().numpy()
+    raw = idx.cpu().numpy()
+    if not np.array_equal(got, np.bincount(raw[raw >= 0], minlength=counts.numel())):
+        raise RuntimeError("graft_entry.entry(): one step differs from np.bincount")
+
+    card = torch.device("cuda", 0)
+    before = kernels.LAUNCHES["sorted_coverage_scatter_add"]
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        graft_entry.dryrun_multichip(4, devices=[card] * 4)
+    launched = kernels.LAUNCHES["sorted_coverage_scatter_add"] - before
+    if "dryrun_multichip(4): OK" not in said.getvalue() or launched < 8:
+        raise RuntimeError(f"dryrun_multichip(4) on a logical mesh: {said.getvalue()!r}, "
+                           f"{launched} kernel launches")
+    have = torch.cuda.device_count()
+    refusal = f"not checked: {have} cards are present"
+    if have < 4:
+        try:
+            graft_entry.dryrun_multichip(4)
+        except RuntimeError as e:
+            refusal = f"refused ({e})"
+        else:
+            raise RuntimeError(f"dryrun_multichip(4) ran with {have} card(s)")
+    print(f"[entry] graft_entry.entry() on cuda: one step == np.bincount ({int(got.sum())} "
+          f"counts); {said.getvalue().strip()} ({launched} sorted-kernel launches on a logical "
+          f"mesh of 4 x cuda:0); dryrun_multichip(4) on {have} card(s): {refusal} [{label}]",
+          flush=True)
 
 
 def main() -> int:
@@ -808,11 +986,13 @@ def main() -> int:
     try:
         raw_launches = raw_race(label)
         race_path(label, wd, gfa, gaf, ref_sha)
-        call_path(label, wd, aug)
+        call_rows = call_path(label, wd, aug)
         mesh_launches = mesh_path(label, wd, gfa, gaf, ref_sha)
         real = real_batches(label, gfa, gaf)
     finally:
         aug.unlink()
+    dist_launches = dist_path(label, wd, gfa, gaf, ref_sha, launches)
+    entry_points(label, wd, gfa, gaf, call_rows)
     device_us = profile_split(25, label)
     profile_split(28, label)
     isolation()
@@ -824,6 +1004,7 @@ def main() -> int:
         "replaces": "pantas_tpu/coverage/pallas_kernel.py:129",
         "launches": launches,  # the single-device main path (phase 3)
         "mesh_launches": mesh_launches,  # phase 8's four runs together
+        "dist_launches": dist_launches,  # phase 11's ranks, both runs together
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": shapes[0]["ms"],  # the main path's 2^25 bucket
         "plain_ms": shapes[0]["plain_ms"],

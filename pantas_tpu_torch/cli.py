@@ -1,19 +1,23 @@
 """Command-line interface of the PyTorch port: ``python -m pantas_tpu_torch``.
 
 The subcommands are ``pantas_tpu``'s (see ``pantas_tpu/cli.py``), and so are
-their flags. This CLI owns the pipeline's stages, each on this package's own
-code: ``build``, ``augment``, ``call``, ``quant`` and ``remap``.
+their flags. This CLI owns nine of them, each on this package's own code: the
+pipeline's stages ``build``, ``augment``, ``call``, ``quant`` and ``remap``,
+the multi-process ``augment-dist``, and ``replicate``, ``reduce`` and
+``novel-sites``.
 
 ``augment --engine device`` (native parse -> device scatter-add) and
 ``--engine device-py`` (Python tokenizer -> device) run on ``--device``
 (``cuda`` by default, ``cpu`` for tests), on one device or, with ``--mesh N``
 or ``--mesh DxK``, on a mesh of them; the host engines (``auto``, ``native``,
-``host``) need no device. ``call --engine device [--mesh N]`` runs the bitset
-finders on ``--device``, ``--engine host`` the host caller.
+``host``) need no device. ``augment-dist`` is one rank of the sharded augment
+over ``torch.distributed``, each rank on its own ``--device``. ``call
+--engine device [--mesh N]`` runs the bitset finders on ``--device``,
+``--engine host`` the host caller.
 
-Every other subcommand of ``pantas_tpu`` (``map``, ``prefilter``,
-``augment-dist``, the evaluation, legacy and experiment tools) is listed by
-``--help`` and exits 2 with a message: it is not ported yet.
+Every other subcommand of ``pantas_tpu`` (``map``, ``prefilter``, the
+evaluation, legacy and experiment tools) is listed by ``--help`` and exits 2
+with a message: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -207,6 +211,32 @@ def _run_augment(args, dev, mesh, out) -> int:
     return 0
 
 
+def _cmd_augment_dist(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch augment-dist")
+    ap.add_argument("GAF")
+    ap.add_argument("GFA")
+    ap.add_argument("-o", dest="out", required=True, help="output GFA (written by proc 0)")
+    ap.add_argument("-q", dest="mapq", type=int, default=20)
+    ap.add_argument("--coordinator", required=True, help="HOST:PORT of process 0")
+    ap.add_argument("--nprocs", type=int, required=True)
+    ap.add_argument("--procid", type=int, required=True)
+    ap.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="this process's device (default cuda, the first card it sees; "
+        "never falls back)",
+    )
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.parallel.distributed import augment_gfa_distributed
+
+    dt = augment_gfa_distributed(
+        args.GAF, args.GFA, args.out,
+        coordinator=args.coordinator, n_procs=args.nprocs, proc_id=args.procid,
+        mapq_thr=args.mapq, device=args.device,
+    )
+    print(f"[augment-dist] proc {args.procid}: accumulate {dt:.2f}s", file=sys.stderr)
+    return 0
+
+
 def _cmd_call(argv):
     ap = argparse.ArgumentParser(prog="pantas-tpu-torch call")
     ap.add_argument("GFA")
@@ -331,40 +361,193 @@ def _cmd_remap(argv):
     return 0
 
 
+def _cmd_reduce(argv):
+    """Standalone GFA reducer (the reference's ``build/reduce.py`` tool)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch reduce")
+    ap.add_argument("GFA")
+    ap.add_argument("-k", dest="k", type=int, default=0,
+                    help="extend each transcript interval by k ids")
+    ap.add_argument("-t", dest="tridx", type=str, default="ENST",
+                    help="transcript-id prefix (default ENST)")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.build.reduce import reduce_gfa
+
+    if args.k > 0:
+        print("Setting k>0 is experimental and not tested", file=sys.stderr)
+    reduce_gfa(args.GFA, sys.stdout, tridx=args.tridx, k=args.k)
+    return 0
+
+
+def _cmd_replicate(argv):
+    """Fused per-replicate pipeline: GAF -> events, no augmented-GFA round trip."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch replicate")
+    ap.add_argument("GAF")
+    ap.add_argument("GFA", help="annotated (un-augmented) spliced pangenome")
+    ap.add_argument("GTF")
+    ap.add_argument("--mapq", dest="mapq", type=int, default=20)
+    ap.add_argument("-t", dest="threads", type=int, default=1)
+    ap.add_argument("--rca", "-w", dest="rca", type=int, default=-1)
+    ap.add_argument("--novel", "-n", dest="novel", action="store_true")
+    ap.add_argument("--no-annotated", "-a", dest="no_annotated", action="store_true")
+    ap.add_argument("--events", "-e", dest="events", nargs="+", default=["ES", "SS", "IR"])
+    ap.add_argument("--isw", "-i", dest="isw", type=int, default=5)
+    ap.add_argument("--minintronsize", "-l", dest="minintronsize", type=int, default=100)
+    args = ap.parse_args(argv)
+
+    import subprocess
+
+    from pantas_tpu_torch.events.caller import CallOptions, SplicingGraph, call_events
+    from pantas_tpu_torch.graph.compiler import compile_gfa
+
+    tensors = compile_gfa(args.GFA)
+    try:
+        from pantas_tpu_torch.native import NativeCoverage
+
+        eng = NativeCoverage(tensors)
+    except (OSError, subprocess.SubprocessError, ValueError) as e:
+        # the engine did not build or load, or cannot key this graph; an
+        # error while it parses or while the graph is built propagates
+        print(f"[replicate] native engine unavailable ({e}); host fallback", file=sys.stderr)
+        from pantas_tpu_torch.coverage.host import accumulate_gaf, load_node_lengths
+        from pantas_tpu_torch.io.xopen import xopen
+
+        node_len = load_node_lengths(args.GFA)
+        with xopen(args.GAF) as fh:
+            counts = accumulate_gaf(fh, node_len, args.mapq)
+        rejected = counts.rejected
+        graph = SplicingGraph.from_coverage(args.GFA, counts)
+    else:
+        eng.process_file(args.GAF, args.mapq, threads=args.threads)
+        rejected = int(eng.lib.gafcov_rejected(eng.handle))
+        # counts apply straight from the engine's vector — no
+        # CoverageCounts dict materialization (see from_engine)
+        graph = SplicingGraph.from_engine(args.GFA, tensors, eng)
+    print(f"Rejected alignments: {rejected}", file=sys.stderr)
+
+    events = []
+    for e in args.events:
+        events.extend(e.split(","))
+    opts = CallOptions(
+        rca=args.rca,
+        novel=args.novel,
+        no_annotated=args.no_annotated,
+        events=events,
+        isw=args.isw,
+        minintronsize=args.minintronsize,
+    )
+    for row in call_events(args.GFA, args.GTF, opts, graph=graph):
+        print(row)
+    return 0
+
+
+def _cmd_novel_sites(argv):
+    ap = argparse.ArgumentParser(
+        prog="pantas-tpu-torch novel-sites",
+        description="Detect intra-node novel splice sites from soft-clip "
+        "pile-ups in a GAF — the signal the reference pipeline structurally "
+        "cannot call (no edge can exist mid-node; its IL/OL histograms skip "
+        "first/last-node offsets). EXTENSION: no reference counterpart.",
+    )
+    ap.add_argument("GAF", nargs="?", default=None)
+    ap.add_argument("GFA", nargs="?", default=None,
+                    help="annotated (optionally augmented) GFA")
+    ap.add_argument("-w", dest="w", type=int, default=3, help="min pile-up count (default 3)")
+    ap.add_argument("-c", dest="min_clip", type=int, default=5,
+                    help="min clipped query bases at the boundary (default 5)")
+    ap.add_argument("-q", dest="mapq", type=int, default=20, help="mapq threshold")
+    ap.add_argument("--include-boundary", action="store_true",
+                    help="also report sites at node boundaries (expressible "
+                    "as graph edges, so normally left to the novel-link path)")
+    ap.add_argument("--events", dest="gtf", default=None, metavar="GTF",
+                    help="classify sites into A3/A5 event rows (gene/strand "
+                    "from the node's exon labels + this GTF)")
+    ap.add_argument("--quant", action="store_true",
+                    help="quantified two-condition mode: merge donor/acceptor "
+                    "pile-ups into intron events with a PSI analogue "
+                    "(needs --c1/--c2/--gfa and --events GTF)")
+    ap.add_argument("--c1", nargs="+", default=None, metavar="GAF",
+                    help="condition-1 replicate GAFs (--quant)")
+    ap.add_argument("--c2", nargs="+", default=None, metavar="GAF",
+                    help="condition-2 replicate GAFs (--quant)")
+    ap.add_argument("--gfa", default=None, help="graph for --quant mode")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.events.sites import (
+        EVENTS_HEADER,
+        QUANT_HEADER,
+        classify_sites,
+        detect_novel_sites,
+        quantify_sites,
+        write_novel_sites,
+    )
+
+    if args.quant:
+        if not (args.c1 and args.c2 and args.gfa and args.gtf):
+            ap.error("--quant needs --c1, --c2, --gfa and --events GTF")
+        print(QUANT_HEADER)
+        for r in quantify_sites(
+            args.c1, args.c2, args.gfa, args.gtf,
+            w=args.w, min_clip=args.min_clip, mapq_thr=args.mapq,
+        ):
+            print(r)
+        return 0
+    if not (args.GAF and args.GFA):
+        ap.error("GAF and GFA are required (unless --quant)")
+
+    rows = detect_novel_sites(
+        args.GAF, args.GFA, w=args.w, min_clip=args.min_clip,
+        mapq_thr=args.mapq, include_boundary=args.include_boundary,
+    )
+    if args.gtf:
+        print(EVENTS_HEADER)
+        for r in classify_sites(rows, args.gtf):
+            print(r)
+    else:
+        write_novel_sites(rows)
+    return 0
+
+
 _OWN = {
     "build": _cmd_build,
     "augment": _cmd_augment,
+    "augment-dist": _cmd_augment_dist,
     "call": _cmd_call,
     "quant": _cmd_quant,
     "remap": _cmd_remap,
+    "replicate": _cmd_replicate,
+    "reduce": _cmd_reduce,
+    "novel-sites": _cmd_novel_sites,
 }
 # the subcommands of pantas_tpu's CLI that wait for their port
 _NOT_PORTED = (
-    "augment-dist", "map", "map-accuracy", "prefilter", "reduce", "gamp", "prune",
-    "reintroduce-paths", "add-junctions", "add-haplotypes", "replicate", "gaf2sam",
-    "introns", "cmp", "compare-rtpcr", "parse-res", "plot-pr", "latex-table",
-    "filter-reads", "fix-vidx", "clean-gtf", "convert-rmats", "convert-suppa",
-    "check-coverage", "check-novel", "timev", "bench-table", "novel-sites", "exp",
-    "sim", "eval",
+    "map", "map-accuracy", "prefilter", "gamp", "prune", "reintroduce-paths",
+    "add-junctions", "add-haplotypes", "gaf2sam", "introns", "cmp", "compare-rtpcr",
+    "parse-res", "plot-pr", "latex-table", "filter-reads", "fix-vidx", "clean-gtf",
+    "convert-rmats", "convert-suppa", "check-coverage", "check-novel", "timev",
+    "bench-table", "exp", "sim", "eval",
 )
 _COMMANDS = {**_OWN, **{name: None for name in _NOT_PORTED}}
 
 _USAGE = f"""pantas-tpu-torch [{'|'.join(_OWN)}|version] -h
 
   pipeline stages (this package's own code):
-    build       build and annotate a spliced pangenome
-    augment     augment an annotated spliced pangenome using alignments information
-                (--engine device [--mesh N|DxK] runs on the card)
-    call        call events from single replicate (--engine device [--mesh N])
-    quant       quantify events comparing conditions
-    remap       remap events to reference haplotype
+    build         build and annotate a spliced pangenome
+    augment       augment an annotated spliced pangenome using alignments information
+                  (--engine device [--mesh N|DxK] runs on the card)
+    augment-dist  one process of the multi-process sharded augment
+                  (--coordinator HOST:PORT --nprocs N --procid I [--device cpu])
+    call          call events from single replicate (--engine device [--mesh N])
+    quant         quantify events comparing conditions
+    remap         remap events to reference haplotype
+    replicate     fused GAF -> events for one replicate (no augmented-GFA round trip)
+    reduce        reduce a GFA to its transcript intervals
+    novel-sites   intra-node novel splice sites from soft-clip pile-ups
 
   subcommands of pantas_tpu that are not ported yet (each exits 2):
     {" ".join(_NOT_PORTED[:9])}
-    {" ".join(_NOT_PORTED[9:19])}
-    {" ".join(_NOT_PORTED[19:])}
+    {" ".join(_NOT_PORTED[9:18])}
+    {" ".join(_NOT_PORTED[18:])}
 
-    version     print the version
+    version       print the version
 """
 
 

@@ -298,12 +298,16 @@ class DeviceCoverage:
                 file=self.log,
             )
         flat = self._read_back(merged)
+        self.log_launches()
+        return flat
+
+    def log_launches(self) -> None:
+        """The stream's closing line: kernel launches beside batches."""
         print(
             f"[device] kernel launches: {sum(kernels.LAUNCHES.values()) - self._launches_at_start} "
             f"(batches: {self.batches})",
             file=self.log,
         )
-        return flat
 
     def _read_back(self, counts: torch.Tensor) -> np.ndarray:
         """Copy the first ``total_slots`` counts to the host, sparsely when

@@ -195,6 +195,22 @@ def test_novel_sites_identical(graphs, tmp_path):
             theirs.detect_novel_sites(str(gaf), str(gfa), **both))
 
 
+@pytest.mark.parametrize("n", [1, 2, 5, 64])
+@pytest.mark.parametrize("tail", ["\n", ""], ids=["newline-at-end", "no-newline-at-end"])
+def test_shard_byte_ranges_identical(tmp_path, n, tail):
+    """``parallel/distributed.py::shard_byte_ranges`` on the micro GAF, also
+    with more ranges than the file has lines."""
+    from pantas_tpu.parallel import distributed as theirs
+    from pantas_tpu_torch.parallel import distributed as ours
+
+    _, gaf = write_micro(tmp_path)
+    path = tmp_path / "r.gaf"
+    path.write_text(open(gaf).read().rstrip("\n") + tail)
+    ranges = ours.shard_byte_ranges(str(path), n)
+    assert ranges == theirs.shard_byte_ranges(str(path), n)
+    assert len(ranges) == n and sum(hi - lo for lo, hi in ranges) == path.stat().st_size
+
+
 def test_slot_encoder_and_counts_from_device_equal(tmp_path):
     """``SlotEncoder``, ``counts_from_device`` and ``_estimate_batches`` of
     the port's device module against the JAX package's."""
