@@ -87,6 +87,22 @@ Run from the root of a checkout, on a machine with a CUDA card:
     ``graft_entry.entry()`` on the card against ``np.bincount``;
     ``graft_entry.dryrun_multichip(4)`` on a logical mesh of the one card,
     and, asked for 4 cards where there are fewer, its refusal.
+13. The mapped-reads path at the 10 Mbp graph, on reads the port makes and
+    maps itself: ``sim -n 48 -r 500 -e 0.005`` on the graph's FASTA and GTF
+    (48 events, about 128k read pairs a condition, each condition at least
+    four whole 2^20-slot batches: deep coverage of few genes); ``map -t
+    <cores> --index DIR`` on each condition, which must run the native
+    alignment core (the mapper falls back to Python in silence, so the log is
+    checked) and hit the index cache on the second; ``augment --engine
+    device`` with ``PANTAS_SCATTER`` unset on each mapped GAF, sha256 equal to
+    ``augment --engine native``, kernel #1's launches equal to the batches;
+    both kernels on the first, a middle and the last slot batch of condition
+    1's mapped GAF as in phase 9; ``call --rca 3 --novel --minintronsize 20``
+    on the host engine and ``--engine device`` on the card, rows equal;
+    ``quant -a``, ``remap -i 20`` and ``eval`` against the simulation's truth:
+    every simulated ES and IR event must be recovered (the other rates are
+    printed, not judged). The host tools run as subprocesses of the CLI
+    through the probe of phase 11, so each reports the modules it loaded.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -607,10 +623,13 @@ def mesh_path(label: str, wd: Path, gfa: Path, gaf: Path, ref_sha: str) -> int:
     return total
 
 
-def real_batches(label: str, gfa: Path, gaf: Path) -> dict:
+def real_batches(label: str, gfa: Path, gaf: Path, tag: str = "real",
+                 source: str = "the 1M-read GAF", min_whole: int = 1) -> dict:
     """Phase 9: the stage's own slot batches through both kernels and
     ``index_add_``. Returns, by picked batch, the timings, the batch's
-    statistics and its bound."""
+    statistics and its bound. Phase 13 calls it on a mapped GAF (``tag``
+    names the lines, ``source`` the reads) and asks for ``min_whole`` batches
+    without padding."""
     from pantas_tpu_torch.coverage import bench_scatter, kernels
     from pantas_tpu_torch.graph.compiler import compile_gfa
     from pantas_tpu_torch.parallel.mesh import scatter_add_counts
@@ -620,6 +639,9 @@ def real_batches(label: str, gfa: Path, gaf: Path) -> dict:
     batches = bench_scatter.slot_batches(str(gaf), tensors, BATCH)
     n = max(1 << 12, 1 << (tensors.total_slots - 1).bit_length())  # the stage's bucket
     parse_s = time.perf_counter() - t0
+    whole = sum(1 for b in batches if b[-1] >= 0)
+    if whole < min_whole:
+        raise RuntimeError(f"{source} fills {whole} whole slot batches, {min_whole} are asked for")
     scatters = {
         "direct": kernels.coverage_scatter_add,
         "sorted": kernels.sorted_coverage_scatter_add,
@@ -639,9 +661,10 @@ def real_batches(label: str, gfa: Path, gaf: Path) -> dict:
     if not (torch.equal(counts["direct"], counts["plain"])
             and torch.equal(counts["sorted"], counts["plain"])
             and int(counts["plain"].sum()) == valid):
-        raise RuntimeError("kernels != index_add_ on the real slot batches")
-    print(f"[real] {len(batches)} slot batches of 2^20 from the 1M-read GAF ({parse_s:.2f} s "
-          f"with the tensorize), {valid} valid indices, {tensors.total_slots} slots in a 2^"
+        raise RuntimeError(f"kernels != index_add_ on the slot batches of {source}")
+    print(f"[{tag}] {len(batches)} slot batches of 2^20 ({whole} of them whole) from {source} "
+          f"({parse_s:.2f} s with the tensorize), {valid} valid indices, "
+          f"{tensors.total_slots} slots in a 2^"
           f"{n.bit_length() - 1} bucket: direct kernel == sorted kernel == index_add_ "
           f"[{label}]", flush=True)
 
@@ -657,9 +680,10 @@ def real_batches(label: str, gfa: Path, gaf: Path) -> dict:
         })
         torch.cuda.synchronize()
         if not all(torch.equal(counts[k], counts["plain"]) for k in counts):
-            raise RuntimeError(f"kernels != index_add_ after the timed calls on real batch {i}")
+            raise RuntimeError(f"kernels != index_add_ after the timed calls on batch {i} "
+                               f"of {source}")
         stats, bound = bench_scatter.batch_stats(batches[i]), _bound(d_idx)
-        print(f"[real] batch {i} ({which}): direct kernel {ms['direct']:.4f} ms, sorted kernel "
+        print(f"[{tag}] batch {i} ({which}): direct kernel {ms['direct']:.4f} ms, sorted kernel "
               f"{ms['sorted']:.4f} ms, plain index_add_ {ms['plain']:.4f} ms, one bare "
               f"index_add_ call {ms['library']:.4f} ms, bound {bound['bound_ms']:.5f} ms by "
               f"{bound['bound_by']}; {json.dumps(stats)}; median of {REPS} [{label}]", flush=True)
@@ -938,6 +962,146 @@ def entry_points(label: str, wd: Path, gfa: Path, gaf: Path, call_rows: list) ->
           flush=True)
 
 
+# phase 13's simulation: events and depth per isoform, chosen so that each
+# condition fills at least four whole 2^20-slot batches (about 128k read pairs
+# of 150 bp, ~30 slots a read) from 48 genes: deep coverage of few exons
+MAPPED_EVENTS = 48
+MAPPED_DEPTH = 500
+MAPPED_MIN_WHOLE = 4
+MAPPED_CALL_FLAGS = ["--rca", "3", "--novel", "--minintronsize", "20"]
+HOST_TOOL_TIMEOUT_S = 300
+
+
+def _port_cli(argv: list, stdout=None) -> tuple:
+    """One subcommand of the port's CLI in a subprocess, through the probe
+    that reports what it loaded. Returns (its log, wall seconds)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONHASHSEED="0")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", RANK_PROBE, json.dumps([str(a) for a in argv])], env=env, cwd=REPO,
+        stdin=subprocess.DEVNULL, stdout=stdout or subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True, timeout=HOST_TOOL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise RuntimeError(f"{argv[0]} exited {proc.returncode}: {proc.stderr[-1500:]}")
+    report = json.loads(proc.stderr.strip().splitlines()[-1])
+    if report != {"rc": 0, "foreign": []}:
+        raise RuntimeError(f"{argv[0]}: {report}")
+    return proc.stderr, wall
+
+
+def mapped_path(label: str, wd: Path, gfa: Path) -> tuple:
+    """Phase 13: simulated reads with errors, mapped by the port's mapper,
+    through kernel #1 on the card, then called, quantified, remapped and
+    scored. Returns (kernel #1's launches over both conditions, the mapped
+    batches' record of ``real_batches``)."""
+    import shutil
+
+    from pantas_tpu_torch import cli
+    from pantas_tpu_torch.eval.compare import parse_quant_remap, parse_truth, score
+
+    md = wd / "smoke_mapped"
+    shutil.rmtree(md, ignore_errors=True)
+    md.mkdir()
+    fa, gtf = wd / "g.fa", wd / "g.gtf"
+
+    log, sim_s = _port_cli(["sim", fa, gtf, "-o", md / "sim", "-n", MAPPED_EVENTS,
+                            "-r", MAPPED_DEPTH, "-e", "0.005"])
+    n_events, n_pairs = map(int, re.search(r"\[simulate\] (\d+) events, (\d+) read pairs",
+                                           log).groups())
+    truth = parse_truth(str(md / "sim_truth.csv"))
+    by_type = dict(sorted(Counter(t.etype for t in truth).items()))
+    if n_events != MAPPED_EVENTS or len(truth) != n_events:
+        raise RuntimeError(f"sim made {n_events} events, {len(truth)} truth rows")
+    print(f"[mapped] sim -n {MAPPED_EVENTS} -r {MAPPED_DEPTH} -e 0.005 on the 10 Mbp FASTA and "
+          f"GTF: {n_events} events {by_type}, {n_pairs} read pairs over two conditions, "
+          f"{sim_s:.2f} s [{label}]", flush=True)
+
+    threads = os.cpu_count() or 1
+    total_launches = 0
+    for cond in ("c1", "c2"):
+        gaf = md / f"{cond}.gaf"
+        log, map_s = _port_cli(["map", gfa, md / f"sim_{cond}_1.fq", md / f"sim_{cond}_2.fq",
+                                "-t", threads, "--index", md / "index", "-o", gaf])
+        # the mapper falls back to its Python path in silence: the log tells
+        first = cond == "c1"
+        if ("[map] phases" not in log or "python path" in log or "unusable" in log
+                or ("[map] native alignment core" in log) != first
+                or ("[map] index cached ->" in log) != first
+                or ("[map] index cache hit" in log) == first):
+            raise RuntimeError(f"map {cond}: the native core or the index cache did not run as "
+                               f"expected: {log[-1500:]}")
+        mapped, total, spliced = map(int, re.search(
+            r"\[map\] mapped (\d+)/(\d+) reads \((\d+) spliced joins\)", log).groups())
+        phases = next(ln for ln in log.splitlines() if ln.startswith("[map] phases"))
+        if not (0 < mapped <= total) or gaf.read_bytes().count(b"\n") != total:
+            raise RuntimeError(f"map {cond}: {mapped}/{total} reads, GAF lines differ")
+        print(f"[mapped] map {cond} -t {threads} --index ({'built and saved' if first else 'cache hit'}"
+              f"): {mapped}/{total} reads mapped, {spliced} spliced joins, {map_s:.2f} s "
+              f"({total / map_s:.0f} reads/s with the process start and the index); native "
+              f"core; {phases.split(': ', 1)[1]} [{label}]", flush=True)
+
+        native_out, dev_out = md / f"{cond}.native.gfa", md / f"{cond}.aug.gfa"
+        _, native_s = _port_cli(["augment", "--engine", "native", gaf, gfa, "-o", native_out])
+        log, counted, device_s, batches = _device_augment(gaf, gfa, dev_out,
+                                                          {"PANTAS_SCATTER": None})
+        launches = counted["sorted_coverage_scatter_add"]
+        if _decision(log) != "cuda-sorted":
+            raise RuntimeError(f"mapped {cond}: device augment did not run the CUDA scatter")
+        if not (launches == batches > MAPPED_MIN_WHOLE) or counted["coverage_scatter_add"]:
+            raise RuntimeError(f"mapped {cond}: {counted} kernel launches for {batches} batches")
+        ref_sha, dev_sha = _sha256(native_out), _sha256(dev_out)
+        native_out.unlink()
+        if ref_sha != dev_sha:
+            raise RuntimeError(f"mapped {cond}: device GFA {dev_sha} != native GFA {ref_sha}")
+        rejected = next(ln for ln in log.splitlines() if ln.startswith("Rejected alignments"))
+        print(f"[mapped] augment --engine device on {cond}'s mapped GAF: {device_s:.3f} s "
+              f"({total / device_s:.0f} reads/s), {launches} kernel launches = {batches} batches, "
+              f"{rejected}, sha256 {dev_sha} == native engine's ({native_s:.2f} s in its own "
+              f"process) [{label}]", flush=True)
+        total_launches += launches
+
+    batches = real_batches(label, gfa, md / "c1.gaf", tag="mapped", min_whole=MAPPED_MIN_WHOLE,
+                           source="condition 1's mapped GAF")
+
+    for cond in ("c1", "c2"):
+        aug = md / f"{cond}.aug.gfa"
+        host_csv, dev_csv = md / f"{cond}.host.csv", md / f"{cond}.events.csv"
+        t0 = time.perf_counter()
+        if cli.main(["call", *MAPPED_CALL_FLAGS, str(aug), str(gtf), "-o", str(host_csv)]):
+            raise RuntimeError(f"mapped {cond}: host call failed")
+        host_s = time.perf_counter() - t0
+        seen, dev_s = _device_call([*MAPPED_CALL_FLAGS, str(aug), str(gtf), "-o", str(dev_csv)])
+        host, dev = _sorted_rows(host_csv), sorted(dev_csv.read_text().splitlines())
+        if dev != host:
+            raise RuntimeError(f"mapped {cond}: device call rows differ from the host caller's "
+                               f"({len(dev)} vs {len(host)} lines)")
+        events = [r for r in host if not r.startswith("event_type,")]
+        kinds = dict(sorted(Counter(",".join(r.split(",")[:2]) for r in events).items()))
+        print(f"[mapped] call {' '.join(MAPPED_CALL_FLAGS)} on {cond}: device engine {dev_s:.3f} s, "
+              f"host engine {host_s:.3f} s, {len(events)} rows equal {kinds}; candidates on "
+              f"cuda {({f: rec['candidates'] for f, rec in seen.items()})} [{label}]", flush=True)
+        aug.unlink()
+
+    _port_cli(["quant", "-a", "--c1", md / "c1.events.csv", "--c2", md / "c2.events.csv",
+               "-o", md / "quant.csv"])
+    _port_cli(["remap", md / "quant.csv", gtf, "-i", "20", "-o", md / "remap.csv"])
+    with open(md / "scores.csv", "w") as fh:
+        _port_cli(["eval", md / "sim_truth.csv", md / "remap.csv", "--relax", "5",
+                   "--min-dpsi", "0.1"], stdout=fh)
+    table = (md / "scores.csv").read_text().strip().splitlines()
+    results = score(truth, parse_quant_remap(str(md / "remap.csv")), relax=5, min_dpsi=0.1)
+    for etype in ("ES", "IR"):  # the kinds a graph junction can express
+        want = sum(1 for t in truth if t.etype == etype)
+        if not want or results[etype]["tp"] != want:
+            raise RuntimeError(f"mapped: {results[etype]['tp']} of {want} simulated {etype} "
+                               f"events recovered: {table}")
+    print(f"[mapped] quant -a, remap -i 20, eval --relax 5 --min-dpsi 0.1 against sim's truth: "
+          f"every simulated ES and IR event recovered; {' | '.join(table)} [{label}]", flush=True)
+    shutil.rmtree(md)
+    return total_launches, batches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -993,6 +1157,7 @@ def main() -> int:
         aug.unlink()
     dist_launches = dist_path(label, wd, gfa, gaf, ref_sha, launches)
     entry_points(label, wd, gfa, gaf, call_rows)
+    mapped_launches, mapped = mapped_path(label, wd, gfa)
     device_us = profile_split(25, label)
     profile_split(28, label)
     isolation()
@@ -1005,12 +1170,17 @@ def main() -> int:
         "launches": launches,  # the single-device main path (phase 3)
         "mesh_launches": mesh_launches,  # phase 8's four runs together
         "dist_launches": dist_launches,  # phase 11's ranks, both runs together
+        "mapped_launches": mapped_launches,  # phase 13's two conditions together
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": shapes[0]["ms"],  # the main path's 2^25 bucket
         "plain_ms": shapes[0]["plain_ms"],
         "bound_ms": shapes[0]["bound_ms"],
         "bound_by": shapes[0]["bound_by"],
         "library_ms": shapes[0]["library_ms"],
+        # the stage's own batches at 2^25: [kernel, one bare index_add_, bound] ms
+        "real_batch_ms": {k: [v["sorted"], v["library"], v["bound_ms"]] for k, v in real.items()},
+        "mapped_batch_ms": {k: [v["sorted"], v["library"], v["bound_ms"]]
+                            for k, v in mapped.items()},
     }, {
         "name": "coverage_scatter_add",
         "route": "cuda",
@@ -1027,6 +1197,8 @@ def main() -> int:
         "uniform_ms": [uniform[0]["direct"], uniform[0]["library"], uniform[0]["bound_ms"]],
         "one_slot_ms": [one_slot[0]["direct"], one_slot[0]["library"], one_slot[0]["bound_ms"]],
         "real_batch_ms": {k: [v["direct"], v["library"], v["bound_ms"]] for k, v in real.items()},
+        "mapped_batch_ms": {k: [v["direct"], v["library"], v["bound_ms"]]
+                            for k, v in mapped.items()},
         "device_us": {k: (v["direct"] or {}).get("direct_scatter") for k, v in device_us.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """Command-line interface of the PyTorch port: ``python -m pantas_tpu_torch``.
 
 The subcommands are ``pantas_tpu``'s (see ``pantas_tpu/cli.py``), and so are
-their flags. This CLI owns nine of them, each on this package's own code: the
+their flags. This CLI owns 31 of them, each on this package's own code: the
 pipeline's stages ``build``, ``augment``, ``call``, ``quant`` and ``remap``,
-the multi-process ``augment-dist``, and ``replicate``, ``reduce`` and
-``novel-sites``.
+the multi-process ``augment-dist``, ``replicate``, the mapper (``map``,
+``prefilter``, ``filter-reads``, ``map-accuracy``), the graph tools, the
+analysis tools and the host-only part of the evaluation harness (``sim``,
+``eval``, ``cmp``, the converters, ``timev``, ``bench-table``).
 
 ``augment --engine device`` (native parse -> device scatter-add) and
 ``--engine device-py`` (Python tokenizer -> device) run on ``--device``
@@ -13,11 +15,12 @@ or ``--mesh DxK``, on a mesh of them; the host engines (``auto``, ``native``,
 ``host``) need no device. ``augment-dist`` is one rank of the sharded augment
 over ``torch.distributed``, each rank on its own ``--device``. ``call
 --engine device [--mesh N]`` runs the bitset finders on ``--device``,
-``--engine host`` the host caller.
+``--engine host`` the host caller. Every other owned subcommand is host code
+and takes no device.
 
-Every other subcommand of ``pantas_tpu`` (``map``, ``prefilter``, the
-evaluation, legacy and experiment tools) is listed by ``--help`` and exits 2
-with a message: it is not ported yet.
+The five subcommands of ``pantas_tpu`` that are left (``compare-rtpcr``,
+``parse-res``, ``plot-pr``, ``latex-table``, ``exp``) are listed by ``--help``
+and exit 2 with a message: they are not ported yet.
 """
 
 from __future__ import annotations
@@ -506,6 +509,385 @@ def _cmd_novel_sites(argv):
     return 0
 
 
+def _cmd_filter_reads(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch filter-reads")
+    ap.add_argument("FQ1")
+    ap.add_argument("FQ2")
+    ap.add_argument("--seed", type=int, default=None)
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.exps_helpers import filter_reads
+
+    o1, o2 = filter_reads(args.FQ1, args.FQ2, seed=args.seed)
+    print(f"[filter-reads] -> {o1} {o2}", file=sys.stderr)
+    return 0
+
+
+def _cmd_fix_vidx(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch fix-vidx")
+    ap.add_argument("VCF", nargs="?", default=None, help="VCF (default stdin)")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.exps_helpers import fix_vidx
+
+    fh = open(args.VCF) if args.VCF else sys.stdin
+    fix_vidx(fh)
+    return 0
+
+
+def _cmd_clean_gtf(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch clean-gtf")
+    ap.add_argument("GTF")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.exps_helpers import clean_gtf
+
+    clean_gtf(args.GTF)
+    return 0
+
+
+def _cmd_prune(argv):
+    """Legacy interval pruning utility (the reference's prune_gfa.py)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch prune")
+    ap.add_argument("GFA")
+    ap.add_argument("-w", dest="w", type=int, default=0,
+                    help="extend subgraphs by W nodes")
+    ap.add_argument("-t", dest="tprefix", default="ENST",
+                    help="transcript prefix (default ENST)")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.build.legacy import prune_gfa
+
+    prune_gfa(args.GFA, sys.stdout, w=args.w, tprefix=args.tprefix)
+    return 0
+
+
+def _cmd_reintroduce(argv):
+    """Restore P lines from an unpruned GFA (reintroduce_paths.py)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch reintroduce-paths")
+    ap.add_argument("GFA", help="original (unpruned) GFA")
+    ap.add_argument("PRUNED_GFA")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.build.legacy import reintroduce_paths
+
+    reintroduce_paths(args.GFA, args.PRUNED_GFA, sys.stdout)
+    return 0
+
+
+def _cmd_add_junctions(argv):
+    """Legacy EX/JN annotator from a gffread transcript FASTA
+    (add_junctions.py)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch add-junctions")
+    ap.add_argument("GFA")
+    ap.add_argument("GFFW", help="gffread transcript FASTA with segs: metadata")
+    ap.add_argument("--IS", dest="ignore_seq", action="store_true",
+                    help="skip the path-sequence == FASTA assertion")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.build.legacy import add_junctions
+
+    add_junctions(args.GFA, args.GFFW, ignore_seq=args.ignore_seq, out=sys.stdout)
+    return 0
+
+
+def _cmd_add_haplotypes(argv):
+    """Legacy haplotype path synthesis from phased VCF _alt_ paths
+    (add_haplotypes.py)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch add-haplotypes")
+    ap.add_argument("GFA")
+    ap.add_argument("VCF")
+    ap.add_argument("-t", dest="tprefix", default="ENST")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.build.legacy import add_haplotypes
+
+    add_haplotypes(args.GFA, args.VCF, tprefix=args.tprefix, out=sys.stdout)
+    return 0
+
+
+def _cmd_gamp(argv):
+    """Legacy GAMP (vg-JSON) augmenter (edge weights only)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch gamp")
+    ap.add_argument("JSON", help="vg multipath alignments as line-JSON")
+    ap.add_argument("PATHS", help="output path-walks file")
+    ap.add_argument("GFA")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.coverage.gamp import augment_gamp
+
+    augment_gamp(args.JSON, args.PATHS, args.GFA, out=sys.stdout)
+    return 0
+
+
+def _cmd_map(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch map")
+    ap.add_argument("GFA")
+    ap.add_argument("FQ1")
+    ap.add_argument("FQ2", nargs="?", default=None)
+    ap.add_argument("-k", dest="k", type=int, default=21, help="seed k-mer size")
+    ap.add_argument("-t", dest="threads", type=int, default=1, help="alignment threads")
+    ap.add_argument("-o", dest="out", default=None,
+                    help="output GAF (default stdout; .gz/.zst compresses)")
+    ap.add_argument("--index", dest="index", default=None, metavar="DIR",
+                    help="persist/reuse the k-mer index (build once, "
+                    "mmap-load on later invocations against the same GFA)")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.mapping.mapper import map_reads
+
+    with _stage_out(args.out) as out:
+        map_reads(args.GFA, args.FQ1, args.FQ2, k=args.k, out=out,
+                  threads=args.threads, index_cache=args.index)
+    return 0
+
+
+def _cmd_prefilter(argv):
+    """shark-style gene-panel read prefilter (reference
+    exps/3-homo-real/workflow/rules/pantas.smk:57-75 flag mapping:
+    -r genes.fa -1/-2 inputs, -o/-p outputs, -q quality, assoc TSV on
+    stdout)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch prefilter")
+    ap.add_argument("-r", dest="genes_fa", required=True, help="gene panel FASTA")
+    ap.add_argument("-1", dest="fq1", required=True)
+    ap.add_argument("-2", dest="fq2", default=None)
+    ap.add_argument("-o", dest="out1", required=True, help="filtered mate-1 FASTQ")
+    ap.add_argument("-p", dest="out2", default=None, help="filtered mate-2 FASTQ")
+    ap.add_argument("-q", dest="qthr", type=int, default=10, help="base quality threshold")
+    ap.add_argument("-k", dest="k", type=int, default=17)
+    ap.add_argument("-c", dest="min_frac", type=float, default=0.6,
+                    help="min fraction of k-mer windows confirming a gene")
+    ap.add_argument("--threads", dest="threads", type=int, default=1)
+    ap.add_argument("--engine", dest="engine", default="auto",
+                    choices=["auto", "native", "python"])
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.mapping.prefilter import prefilter_reads
+
+    prefilter_reads(
+        args.genes_fa, args.fq1, args.fq2, args.out1, args.out2,
+        tsv_out=sys.stdout, k=args.k, qthr=args.qthr,
+        min_frac=args.min_frac, threads=args.threads, engine=args.engine,
+    )
+    return 0
+
+
+def _cmd_map_accuracy(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch map-accuracy")
+    ap.add_argument("GFA")
+    ap.add_argument("-n", dest="n_reads", type=int, default=2000)
+    ap.add_argument("-l", dest="read_len", type=int, default=150)
+    ap.add_argument(
+        "-d", dest="divergences", default="0,0.01,0.02,0.05",
+        help="comma-separated divergence rates",
+    )
+    ap.add_argument("-e", dest="error_rate", type=float, default=0.001)
+    ap.add_argument("-s", dest="seed", type=int, default=11)
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.mapper_accuracy import evaluate, report
+
+    results = evaluate(
+        args.GFA,
+        divergences=[float(x) for x in args.divergences.split(",")],
+        n_reads=args.n_reads,
+        read_len=args.read_len,
+        error_rate=args.error_rate,
+        seed=args.seed,
+    )
+    report(results)
+    return 0
+
+
+def _cmd_gaf2sam(argv):
+    """Project GAF walks to linear SAM (exps/3-homo gaf2sam.py equivalent)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch gaf2sam")
+    ap.add_argument("GAF")
+    ap.add_argument("GFA")
+    ap.add_argument("POSITIONS", nargs="?", default=None,
+                    help="path\\tpos,pos,... node-position file (reference-compatible); "
+                    "omit to derive positions from the graph's chromosome paths")
+    ap.add_argument("--sq", choices=["auto", "hg38"], default="auto",
+                    help="@SQ header source: derived from the graph (auto) or the "
+                    "reference script's hardcoded hg38 table")
+    ap.add_argument("--debug", action="store_true", help="progress/skip log on stderr")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.gaf2sam import gaf_to_sam
+
+    if args.POSITIONS and args.sq == "auto":
+        ap.error("positions-file mode needs an explicit --sq (the graph carries no header)")
+    gaf_to_sam(
+        args.GAF, args.GFA, args.POSITIONS, out=sys.stdout,
+        sq="hg38" if args.sq == "hg38" else None,
+        log=sys.stderr if args.debug else None,
+    )
+    return 0
+
+
+def _cmd_cmp(argv):
+    """Multi-tool accuracy comparison vs truth (cmp_pantas.py equivalent)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch cmp")
+    ap.add_argument("-t", dest="truth", required=True, help="truth CSV")
+    ap.add_argument("-p", dest="pantas", required=True, help="quant-remap CSV")
+    ap.add_argument("-r", dest="rmats", default=None, help="rMATS CSV")
+    ap.add_argument("-w", dest="whippet", default=None, help="Whippet psi file")
+    ap.add_argument("-s", dest="suppa", default=None, help="SUPPA2 CSV")
+    ap.add_argument("-c", dest="min_cov", type=int, default=5)
+    ap.add_argument("-d", dest="min_dpsi", type=float, default=0.05)
+    ap.add_argument("--supp", dest="supp", type=int, default=0)
+    ap.add_argument("--events", nargs="+", default=["ES", "A3", "A5", "IR"])
+    ap.add_argument("--novel", action="store_true")
+    ap.add_argument("--tabs", action="store_true")
+    ap.add_argument("--print", dest="print_flag", action="store_true")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.cmp_tools import compare_tools
+
+    compare_tools(
+        args.truth, args.pantas, args.rmats, args.whippet, args.suppa,
+        events=args.events, min_dpsi=args.min_dpsi, min_cov=args.min_cov,
+        novel=args.novel, supp=args.supp, tabs=args.tabs,
+        print_flag=args.print_flag,
+    )
+    return 0
+
+
+def _cmd_convert_rmats(argv):
+    """Convert an rMATS output dir to the comparator CSV (build_rmats.py)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch convert-rmats")
+    ap.add_argument("RMATS_DIR", help="directory with {SE,A3SS,A5SS,RI}.MATS.JC.txt")
+    ap.add_argument("-o", dest="out", required=True)
+    ap.add_argument("-p", dest="pvalue", type=float, default=0.05)
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.converters import rmats_to_csv
+
+    rmats_to_csv(args.RMATS_DIR, args.out, pvalue=args.pvalue)
+    return 0
+
+
+def _cmd_convert_suppa(argv):
+    """Convert a SUPPA2 .dpsi file to the comparator CSV (build_suppa.py)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch convert-suppa")
+    ap.add_argument("DPSI")
+    ap.add_argument("-o", dest="out", required=True)
+    ap.add_argument("-p", dest="pvalue", type=float, default=0.05)
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.converters import suppa_to_csv
+
+    suppa_to_csv(args.DPSI, args.out, pvalue=args.pvalue)
+    return 0
+
+
+def _cmd_check_coverage(argv):
+    """Count spliced-alignment support for skipped exons (check_coverage.py)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch check-coverage")
+    ap.add_argument("EVENTS", help="one skipped-exon region (chrom:start-end) per line")
+    ap.add_argument("GTF")
+    ap.add_argument("SAM", nargs="+", help="linear alignments (e.g. gaf2sam output)")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.support import check_skipping_support
+
+    check_skipping_support(args.EVENTS, args.GTF, args.SAM, out=sys.stdout)
+    return 0
+
+
+def _cmd_check_novel(argv):
+    """Classify skipped exons as novel vs annotated (check_novel.py)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch check-novel")
+    ap.add_argument("EVENTS", help="one skipped-exon region (chrom:start-end) per line")
+    ap.add_argument("GTF")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.support import classify_novel_skips
+
+    regions = {line.strip("\n") for line in open(args.EVENTS) if line.strip()}
+    for region, novel in sorted(classify_novel_skips(regions, args.GTF).items()):
+        print(region, novel)
+    return 0
+
+
+def _cmd_introns(argv):
+    """Fit the intron length distribution from a GTF (log-normal mixture)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch introns")
+    ap.add_argument("-g", "--gtf", required=True)
+    ap.add_argument("-o", "--out", required=True, help="where to save the model")
+    ap.add_argument("-l", "--label", default="transcript_id")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.introns import estimate
+
+    estimate(args.gtf, args.out, label=args.label)
+    return 0
+
+
+def _cmd_timev(argv):
+    """Run a command under rusage timing, writing a ``time -v`` log."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch timev")
+    ap.add_argument("-o", dest="time_file", required=True, help="output .time file")
+    ap.add_argument("CMD", nargs=argparse.REMAINDER, help="command to run")
+    args = ap.parse_args(argv)
+    if not args.CMD:
+        ap.error("no command given")
+    cmd = args.CMD[1:] if args.CMD and args.CMD[0] == "--" else args.CMD
+    from pantas_tpu_torch.eval.bench import run_timed
+
+    return run_timed(cmd, args.time_file)
+
+
+def _cmd_bench_table(argv):
+    """Fold a directory of .time logs into one bench CSV (compare_bench.py)."""
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch bench-table")
+    ap.add_argument("BENCH_DIR")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.bench import collect
+
+    collect(args.BENCH_DIR, out=sys.stdout)
+    return 0
+
+
+def _cmd_sim(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch sim")
+    ap.add_argument("FA")
+    ap.add_argument("GTF")
+    ap.add_argument("-o", dest="prefix", default="sim")
+    ap.add_argument("-n", dest="n_events", type=int, default=8)
+    ap.add_argument("-r", dest="reads", type=int, default=60)
+    ap.add_argument("-l", dest="read_len", type=int, default=150)
+    ap.add_argument("-e", dest="error_rate", type=float, default=0.001)
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument(
+        "--etypes", nargs="+", default=["ES", "IR", "A3", "A5"],
+        help="event kinds to inject (ES IR A3 A5 CE)",
+    )
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.simulate import simulate
+
+    simulate(
+        args.FA,
+        args.GTF,
+        args.prefix,
+        n_events=args.n_events,
+        reads_per_isoform=args.reads,
+        read_len=args.read_len,
+        error_rate=args.error_rate,
+        etypes=args.etypes,
+        seed=args.seed,
+    )
+    return 0
+
+
+def _cmd_eval(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch eval")
+    ap.add_argument("TRUTH")
+    ap.add_argument("REMAP_CSV")
+    ap.add_argument("--relax", type=int, default=3)
+    ap.add_argument("--min-dpsi", dest="min_dpsi", type=float, default=0.0)
+    ap.add_argument("--min-w", dest="min_w", type=float, default=0.0)
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.compare import (
+        parse_quant_remap,
+        parse_truth,
+        print_scores,
+        score,
+    )
+
+    results = score(
+        parse_truth(args.TRUTH),
+        parse_quant_remap(args.REMAP_CSV),
+        relax=args.relax,
+        min_dpsi=args.min_dpsi,
+        min_w=args.min_w,
+    )
+    print_scores(results)
+    return 0
+
+
 _OWN = {
     "build": _cmd_build,
     "augment": _cmd_augment,
@@ -514,22 +896,38 @@ _OWN = {
     "quant": _cmd_quant,
     "remap": _cmd_remap,
     "replicate": _cmd_replicate,
+    "map": _cmd_map,
+    "map-accuracy": _cmd_map_accuracy,
+    "prefilter": _cmd_prefilter,
+    "filter-reads": _cmd_filter_reads,
+    "gamp": _cmd_gamp,
+    "gaf2sam": _cmd_gaf2sam,
     "reduce": _cmd_reduce,
+    "prune": _cmd_prune,
+    "reintroduce-paths": _cmd_reintroduce,
+    "add-junctions": _cmd_add_junctions,
+    "add-haplotypes": _cmd_add_haplotypes,
+    "fix-vidx": _cmd_fix_vidx,
+    "clean-gtf": _cmd_clean_gtf,
+    "introns": _cmd_introns,
     "novel-sites": _cmd_novel_sites,
+    "check-coverage": _cmd_check_coverage,
+    "check-novel": _cmd_check_novel,
+    "sim": _cmd_sim,
+    "eval": _cmd_eval,
+    "cmp": _cmd_cmp,
+    "convert-rmats": _cmd_convert_rmats,
+    "convert-suppa": _cmd_convert_suppa,
+    "timev": _cmd_timev,
+    "bench-table": _cmd_bench_table,
 }
 # the subcommands of pantas_tpu's CLI that wait for their port
-_NOT_PORTED = (
-    "map", "map-accuracy", "prefilter", "gamp", "prune", "reintroduce-paths",
-    "add-junctions", "add-haplotypes", "gaf2sam", "introns", "cmp", "compare-rtpcr",
-    "parse-res", "plot-pr", "latex-table", "filter-reads", "fix-vidx", "clean-gtf",
-    "convert-rmats", "convert-suppa", "check-coverage", "check-novel", "timev",
-    "bench-table", "exp", "sim", "eval",
-)
+_NOT_PORTED = ("compare-rtpcr", "parse-res", "plot-pr", "latex-table", "exp")
 _COMMANDS = {**_OWN, **{name: None for name in _NOT_PORTED}}
 
-_USAGE = f"""pantas-tpu-torch [{'|'.join(_OWN)}|version] -h
+_USAGE = f"""pantas-tpu-torch [build|augment|call|quant|remap|map|version] -h
 
-  pipeline stages (this package's own code):
+  pipeline stages:
     build         build and annotate a spliced pangenome
     augment       augment an annotated spliced pangenome using alignments information
                   (--engine device [--mesh N|DxK] runs on the card)
@@ -539,13 +937,41 @@ _USAGE = f"""pantas-tpu-torch [{'|'.join(_OWN)}|version] -h
     quant         quantify events comparing conditions
     remap         remap events to reference haplotype
     replicate     fused GAF -> events for one replicate (no augmented-GFA round trip)
-    reduce        reduce a GFA to its transcript intervals
-    novel-sites   intra-node novel splice sites from soft-clip pile-ups
+
+  mapping / input preparation:
+    map           align reads to the spliced pangenome (GAF output)
+    map-accuracy  mapper placement accuracy + MAPQ calibration sweep
+    prefilter     shark-style gene-panel read prefilter (FASTQ -> FASTQ + TSV)
+    filter-reads  keep FASTQ records whose names match a prefilter TSV
+    gamp          legacy vg-JSON (GAMP) augmenter (edge weights only)
+    gaf2sam       project graph alignments to linear SAM records
+
+  graph tools:
+    reduce        reduce a GFA to its transcript id-intervals (gene panels)
+    prune         drop uncovered nodes/edges from a GFA (id-interval pruning)
+    reintroduce-paths  restore P lines onto a pruned GFA (validated double pass)
+    add-junctions   legacy exon/junction tagging from transcript FASTA
+    add-haplotypes  legacy haplotype path synthesis from a phased VCF
+    fix-vidx      renumber variant indexes in a GFA
+    clean-gtf     normalize a GTF for the build layer
+    introns       fit the intron length distribution from a GTF
+
+  analysis / extensions:
+    novel-sites   detect intra-node novel splice sites from clip pile-ups (GAF)
+    check-coverage  count spliced support for skipped exons in SAM files
+    check-novel   classify skipped exons as novel vs annotated
+
+  evaluation harness:
+    sim           simulate AS-event reads with ground truth
+    eval          score called events against simulation truth (P/R/F1)
+    cmp           multi-tool accuracy comparison vs truth (pantas/rMATS/Whippet/SUPPA2)
+    convert-rmats   rMATS output dir -> comparator CSV
+    convert-suppa   SUPPA2 .dpsi -> comparator CSV
+    timev         run a command under rusage timing (time -v format log)
+    bench-table   fold a directory of .time logs into one CSV
 
   subcommands of pantas_tpu that are not ported yet (each exits 2):
-    {" ".join(_NOT_PORTED[:9])}
-    {" ".join(_NOT_PORTED[9:18])}
-    {" ".join(_NOT_PORTED[18:])}
+    {" ".join(_NOT_PORTED)}
 
     version       print the version
 """

@@ -33,10 +33,10 @@ def test_device_augment_cli_matches_host_engine(tmp_path, engine):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["map", "x.gfa", "x.fq"],
-        ["prefilter", "-r", "g.fa", "-1", "x.fq", "-o", "o.fq"],
+        ["exp", "config.json"],
+        ["plot-pr", "-o", "out", "a.csv"],
     ],
-    ids=["map", "prefilter"],
+    ids=["exp", "plot-pr"],
 )
 def test_unported_device_paths_refuse(argv, capsys):
     assert cli.main(argv) == 2

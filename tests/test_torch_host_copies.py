@@ -307,3 +307,254 @@ def test_checkpoint_payload_holds_no_package_class(tmp_path, feed, mesh):
         state = Recorder(fh).load()
     assert state["total_slots"] > 0
     assert modules and all(m.split(".")[0] in ("numpy", "builtins") for m in modules), modules
+
+
+# The mapper and the host tools around it: sixteen files copied with only the
+# package name changed. Three lines of the originals are reworded in the port
+# (a docstring that names a directory outside the repo, and one parameter's
+# name): each is given here by its line number, with the port's text.
+COPIED_FILES = {
+    "mapping/__init__.py": {}, "mapping/mapper.py": {}, "mapping/prefilter.py": {},
+    "eval/exps_helpers.py": {}, "build/legacy.py": {}, "coverage/gamp.py": {},
+    "eval/simulate.py": {}, "eval/compare.py": {}, "eval/converters.py": {},
+    "eval/mapper_accuracy.py": {}, "eval/gaf2sam.py": {}, "eval/support.py": {},
+    "eval/introns.py": {}, "eval/bench.py": {},
+    "eval/sim_truth.py": {
+        6: "* :func:`simrc` — ``exps/1-dm-sim/scripts/simrc.py:1-187`` of the reference:"},
+    "eval/cmp_tools.py": {
+        317: "def _load_csv(path: str, make_event, min_dpsi: float, skip_haplotype=False,",
+        326: "        e = make_event(fields)"},
+}
+
+
+@pytest.mark.parametrize("rel", sorted(COPIED_FILES))
+def test_copied_source_differs_only_in_the_package_name(rel):
+    original = (REPO_ROOT / "pantas_tpu" / rel).read_text()
+    expected = original.replace("pantas_tpu", "pantas_tpu_torch").split("\n")
+    for lineno, text in COPIED_FILES[rel].items():
+        expected[lineno - 1] = text
+    assert (REPO_ROOT / "pantas_tpu_torch" / rel).read_text().split("\n") == expected
+
+
+SIM_FILES = ["c1_1.fq", "c1_2.fq", "c2_1.fq", "c2_2.fq", "truth.csv", "event_annotation.tsv",
+             "exon_junction.tsv", "variants.gtf"]
+
+
+@pytest.fixture(scope="module")
+def sim_reads(graphs, tmp_path_factory):
+    """``sim`` of both packages on the synthetic graph's FASTA and GTF, from
+    one seed, with substitution errors: 4 events, about 850 pairs a
+    condition. Returns the directory of each."""
+    theirs, _ = graphs
+    dirs = []
+    for pkg in ("pantas_tpu", "pantas_tpu_torch"):
+        wd = tmp_path_factory.mktemp(f"sim_{pkg}")
+        run_cli([sys.executable, "-m", pkg, "sim", str(theirs / "g.fa"), str(theirs / "g.gtf"),
+                 "-o", str(wd / "sim"), "-n", "4", "-r", "40", "-e", "0.01", "--seed", "3"])
+        dirs.append(wd)
+    return dirs
+
+
+def test_sim_artifacts_identical(sim_reads):
+    theirs, ours = sim_reads
+    assert sorted(p.name for p in ours.iterdir()) == sorted(f"sim_{n}" for n in SIM_FILES)
+    _same_files(theirs, ours, [f"sim_{n}" for n in SIM_FILES])
+    assert (ours / "sim_truth.csv").read_text().count("\n") == 5
+
+
+def test_sim_replicates_and_depths_identical(graphs, tmp_path):
+    """The options the CLI does not reach (replicates, unequal depths, a
+    weaker signal, every event kind), through the functions."""
+    from pantas_tpu.eval.simulate import simulate as theirs
+    from pantas_tpu_torch.eval.simulate import simulate as ours
+
+    wd = graphs[0]
+    kw = dict(n_events=5, reads_per_isoform=10, error_rate=0.02, seed=5, replicates=2, dpsi=0.3,
+              depth_factors=(1.0, 0.5), min_pairs=2, etypes=("ES", "IR", "A3", "A5", "CE"),
+              log=io.StringIO())
+    for name, fn in (("a", theirs), ("b", ours)):
+        (tmp_path / name).mkdir()
+        fn(str(wd / "g.fa"), str(wd / "g.gtf"), str(tmp_path / name / "s"), **kw)
+    names = sorted(p.name for p in (tmp_path / "a").iterdir())
+    assert len(names) == 12 and names == sorted(p.name for p in (tmp_path / "b").iterdir())
+    _same_files(tmp_path / "a", tmp_path / "b", names)
+
+
+def _map_cli(pkg, gfa, reads, out, *flags):
+    proc = run_cli([sys.executable, "-m", pkg, "map", str(gfa), *map(str, reads), "-o", str(out),
+                    *flags])
+    return proc.stderr
+
+
+def _native_core_ran(log: str) -> bool:
+    """``map`` falls back to its Python path in silence; the log tells."""
+    return (("[map] native alignment core" in log or "[map] index cache hit" in log)
+            and "[map] phases" in log and "python path" not in log)
+
+
+@pytest.mark.parametrize("ends", ["paired", "single"])
+def test_map_native_identical_through_both_clis(graphs, sim_reads, tmp_path, ends):
+    """The native core through both CLIs on simulated reads with errors:
+    same bytes, for one thread and for four."""
+    gfa = graphs[1] / "out" / "pantranscriptome-annotated.gfa"
+    reads = [sim_reads[1] / "sim_c2_1.fq", sim_reads[1] / "sim_c2_2.fq"][: 2 if ends == "paired" else 1]
+    _map_cli("pantas_tpu", gfa, reads, tmp_path / "a.gaf")
+    log = _map_cli("pantas_tpu_torch", gfa, reads, tmp_path / "b.gaf")
+    assert _native_core_ran(log)
+    gaf = (tmp_path / "b.gaf").read_bytes()
+    assert gaf == (tmp_path / "a.gaf").read_bytes()
+    n_reads = sum(p.read_text().count("\n") // 4 for p in reads)
+    assert gaf.count(b"\n") == n_reads and b"*" in gaf and b"\tcs:Z:" in gaf
+    log = _map_cli("pantas_tpu_torch", gfa, reads, tmp_path / "t4.gaf", "-t", "4")
+    assert _native_core_ran(log) and (tmp_path / "t4.gaf").read_bytes() == gaf
+
+
+def test_map_python_engine_identical(graphs, sim_reads, tmp_path):
+    """The Python path of both packages, and it against the native core."""
+    from pantas_tpu.mapping.mapper import map_reads as theirs
+    from pantas_tpu_torch.mapping.mapper import map_reads as ours
+
+    gfa = str(graphs[1] / "out" / "pantranscriptome-annotated.gfa")
+    fq1, fq2 = tmp_path / "r_1.fq", tmp_path / "r_2.fq"
+    for src, dst in ((sim_reads[1] / "sim_c2_1.fq", fq1), (sim_reads[1] / "sim_c2_2.fq", fq2)):
+        dst.write_text("".join(src.read_text().splitlines(keepends=True)[:400]))
+    outs = []
+    for fn, engine in ((theirs, "python"), (ours, "python"), (ours, "native")):
+        buf, log = io.StringIO(), io.StringIO()
+        mapped, total = fn(gfa, str(fq1), str(fq2), out=buf, log=log, engine=engine)
+        assert total == 200 and mapped > 150
+        assert ("native alignment core" in log.getvalue()) == (engine == "native")
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] == outs[2]
+
+
+def test_map_gz_input_identical(graphs, sim_reads, tmp_path):
+    import gzip
+
+    gfa = graphs[1] / "out" / "pantranscriptome-annotated.gfa"
+    plain = sim_reads[1] / "sim_c1_1.fq"
+    gz = tmp_path / "r.fq.gz"
+    with gzip.open(gz, "wb") as fh:
+        fh.write(plain.read_bytes())
+    _map_cli("pantas_tpu", gfa, [gz], tmp_path / "a.gaf")
+    assert _native_core_ran(_map_cli("pantas_tpu_torch", gfa, [gz], tmp_path / "b.gaf"))
+    _map_cli("pantas_tpu_torch", gfa, [plain], tmp_path / "plain.gaf")
+    assert ((tmp_path / "a.gaf").read_bytes() == (tmp_path / "b.gaf").read_bytes()
+            == (tmp_path / "plain.gaf").read_bytes())
+    # and a compressed GAF comes out the same once inflated
+    _map_cli("pantas_tpu_torch", gfa, [gz], tmp_path / "c.gaf.gz")
+    assert gzip.open(tmp_path / "c.gaf.gz").read() == (tmp_path / "b.gaf").read_bytes()
+
+
+def test_map_indel_reads_identical(tmp_path):
+    """Reads carrying a deletion and an insertion against one path: gap ops in
+    the ``cs`` tag, the same from both packages and both engines."""
+    from test_mapper_indel import _mk_path
+
+    from pantas_tpu.mapping import mapper as theirs
+    from pantas_tpu_torch.mapping import mapper as ours
+
+    rec = _mk_path()
+    gfa = tmp_path / "g.gfa"
+    lines = [f"S\t{nid}\t{rec.seq[i * 25:(i + 1) * 25]}" for i, nid in enumerate(rec.nodes)]
+    lines += [f"L\t{a}\t+\t{b}\t+\t*" for a, b in zip(rec.nodes, rec.nodes[1:])]
+    lines.append("P\tT1_R1\t" + ",".join(n + "+" for n in rec.nodes) + "\t*")
+    gfa.write_text("\n".join(lines) + "\n")
+    seq = rec.seq
+    reads = {"rd": seq[10:80] + seq[84:150], "ri": seq[10:90] + "ACGTA" + seq[90:150],
+             "rp": seq[5:155], "rr": ours.revcomp(seq[10:80] + seq[84:150])}
+    fq = tmp_path / "r.fq"
+    fq.write_text("".join(f"@{n}\n{s}\n+\n{'I' * len(s)}\n" for n, s in reads.items()))
+    _map_cli("pantas_tpu", gfa, [fq], tmp_path / "a.gaf")
+    assert _native_core_ran(_map_cli("pantas_tpu_torch", gfa, [fq], tmp_path / "b.gaf"))
+    gaf = (tmp_path / "b.gaf").read_text()
+    assert gaf == (tmp_path / "a.gaf").read_text()
+    assert "-" in gaf.split("cs:Z:")[1] and "+acgta" in gaf
+    for mod in (theirs, ours):
+        buf = io.StringIO()
+        mod.map_reads(str(gfa), str(fq), out=buf, log=io.StringIO(), engine="python")
+        assert buf.getvalue() == gaf
+    # the Python aligner's pieces, not only its text
+    a = theirs.align_read(theirs.PathIndex([rec]), reads["ri"])
+    b = ours.align_read(ours.PathIndex([ours.PathRecord(rec.name, rec.nodes, rec.offsets, rec.seq)]),
+                        reads["ri"])
+    assert [(p.ops, p.qstart, p.qend) for p in a.pieces] == [(p.ops, p.qstart, p.qend)
+                                                             for p in b.pieces]
+
+
+@pytest.mark.parametrize("writer", ["pantas_tpu", "pantas_tpu_torch"])
+def test_map_index_cache_carries_between_packages(graphs, sim_reads, tmp_path, writer):
+    """The cache is ``.npy`` files and ``meta.json``: written by one package,
+    it is a hit in the other, and the GAF is the uncached one."""
+    reader = "pantas_tpu_torch" if writer == "pantas_tpu" else "pantas_tpu"
+    gfa = graphs[1] / "out" / "pantranscriptome-annotated.gfa"
+    reads = [sim_reads[1] / "sim_c1_1.fq", sim_reads[1] / "sim_c1_2.fq"]
+    cache = tmp_path / "idx"
+    log = _map_cli(writer, gfa, reads, tmp_path / "w.gaf", "--index", str(cache))
+    assert "[map] index cached ->" in log and "cache hit" not in log
+    assert (cache / "meta.json").exists() and list(cache.glob("*.npy"))
+    log = _map_cli(reader, gfa, reads, tmp_path / "r.gaf", "--index", str(cache), "-t", "2")
+    assert "[map] index cache hit" in log and "[map] phases" in log and "rebuilding" not in log
+    _map_cli(reader, gfa, reads, tmp_path / "plain.gaf")
+    assert ((tmp_path / "w.gaf").read_bytes() == (tmp_path / "r.gaf").read_bytes()
+            == (tmp_path / "plain.gaf").read_bytes())
+
+
+@pytest.mark.parametrize("ends", ["paired", "single"])
+def test_prefilter_identical_for_both_engines(tmp_path, ends):
+    """The two FASTQs and the TSV of ``prefilter``, native and Python engine,
+    through both CLIs: four runs, one answer."""
+    from test_prefilter import _mk_inputs
+
+    fa, p1, p2, truth = _mk_inputs(tmp_path)
+    answers = []
+    for pkg in ("pantas_tpu", "pantas_tpu_torch"):
+        for engine in ("native", "python"):
+            o1, o2 = tmp_path / f"{pkg}.{engine}.1.fq", tmp_path / f"{pkg}.{engine}.2.fq"
+            mates = ["-2", str(p2), "-p", str(o2)] if ends == "paired" else []
+            proc = run_cli([sys.executable, "-m", pkg, "prefilter", "-r", str(fa), "-1", str(p1),
+                            "-o", str(o1), *mates, "--engine", engine, "--threads", "2"])
+            answers.append((o1.read_text(), o2.read_text() if mates else "", proc.stdout))
+    assert answers[0] == answers[1] == answers[2] == answers[3]
+    kept = dict(line.split("\t") for line in answers[3][2].splitlines())
+    if ends == "paired":
+        assert kept == {n: g for n, g in truth.items() if g is not None}
+    assert kept and answers[3][0].count("\n") == 4 * len(kept)
+
+
+def test_prefilter_then_filter_reads_then_map(graphs, sim_reads, tmp_path):
+    """The chain prefilter -> filter-reads -> map on the port alone, against
+    the same chain on the JAX package."""
+    wd = graphs[1]
+    gfa = wd / "out" / "pantranscriptome-annotated.gfa"
+    from pantas_tpu_torch.io.fasta import read_fasta
+    from pantas_tpu_torch.io.gtf import parse_transcript_models
+
+    chroms = read_fasta(str(wd / "g.fa"))
+    models = parse_transcript_models(str(wd / "g.gtf"))
+    panel = tmp_path / "panel.fa"
+    genes = {}
+    for tr in models.values():
+        lo, hi = min(s for s, _ in tr.exons), max(e for _, e in tr.exons)
+        genes.setdefault(tr.gene, chroms[tr.chrom][lo - 1:hi])
+    panel.write_text("".join(f">{g}\n{s}\n" for g, s in sorted(genes.items())[:3]))
+    gafs = []
+    for pkg in ("pantas_tpu", "pantas_tpu_torch"):
+        d = tmp_path / pkg
+        d.mkdir()
+        run_cli([sys.executable, "-m", pkg, "prefilter", "-r", str(panel),
+                 "-1", str(sim_reads[1] / "sim_c2_1.fq"), "-2", str(sim_reads[1] / "sim_c2_2.fq"),
+                 "-o", str(d / "f_1.fq"), "-p", str(d / "f_2.fq")], out_path=d / "assoc.tsv")
+        run_cli([sys.executable, "-m", pkg, "filter-reads", "--seed", "1", str(d / "f_1.fq"),
+                 str(d / "f_2.fq")])
+        _map_cli(pkg, gfa, [d / "f_1.clean.fq", d / "f_2.clean.fq"], d / "out.gaf")
+        gafs.append((d / "assoc.tsv").read_bytes() + (d / "out.gaf").read_bytes())
+    assert gafs[0] == gafs[1] and gafs[1].count(b"\n") > 20
+
+
+def test_map_accuracy_report_identical(graphs):
+    gfa = str(graphs[1] / "out" / "pantranscriptome-annotated.gfa")
+    args = ["map-accuracy", gfa, "-n", "150", "-l", "100", "-d", "0,0.02", "-s", "5"]
+    theirs = run_cli([sys.executable, "-m", "pantas_tpu", *args])
+    ours = run_cli([sys.executable, "-m", "pantas_tpu_torch", *args])
+    assert ours.stdout == theirs.stdout and ours.stdout.count("\n") > 3

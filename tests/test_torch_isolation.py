@@ -71,6 +71,8 @@ def _argv(case, tmp_path):
 
         gaf, gfa = _fixture(tmp_path)
         return ["novel-sites", str(gaf), str(gfa)]
+    if case in HOST_TOOLS:
+        return HOST_TOOLS[case](tmp_path, out)
     c1, c2, gtf = write_quant_fixtures(tmp_path)
     if case == "quant":
         return ["quant", "-a", *c1, *c2, "-o", out]
@@ -81,6 +83,169 @@ def _argv(case, tmp_path):
     return ["remap", quant, gtf, "-o", out]
 
 
+def _mapper_inputs(tmp_path):
+    """One path of eight nodes, and four reads along it (one with a gap)."""
+    from test_mapper_indel import _mk_path
+
+    rec = _mk_path()
+    lines = [f"S\t{nid}\t{rec.seq[i * 25:(i + 1) * 25]}" for i, nid in enumerate(rec.nodes)]
+    lines += [f"L\t{a}\t+\t{b}\t+\t*" for a, b in zip(rec.nodes, rec.nodes[1:])]
+    lines.append("P\tT1_R1\t" + ",".join(n + "+" for n in rec.nodes) + "\t*")
+    gfa, fq = tmp_path / "g.gfa", tmp_path / "r.fq"
+    gfa.write_text("\n".join(lines) + "\n")
+    reads = [rec.seq[5:155], rec.seq[10:80] + rec.seq[84:150], rec.seq[40:190], "ACGT" * 30]
+    fq.write_text("".join(f"@r{i}\n{s}\n+\n{'I' * len(s)}\n" for i, s in enumerate(reads)))
+    return str(gfa), str(fq)
+
+
+def _synthetic_annotation(tmp_path):
+    from pantas_tpu_torch.eval.synth import gen_inputs
+
+    gen_inputs(tmp_path, mbp=0.05, n_var=50, n_genes=5, n_samples=2)
+    return str(tmp_path / "g.fa"), str(tmp_path / "g.gtf")
+
+
+def _prefilter_argv(tmp_path, out):
+    from test_prefilter import _mk_inputs
+
+    fa, p1, p2, _ = _mk_inputs(tmp_path, n_pairs=10)
+    return ["prefilter", "-r", str(fa), "-1", str(p1), "-2", str(p2), "-o", out,
+            "-p", str(tmp_path / "out2")]
+
+
+def _filter_reads_argv(tmp_path, out):
+    from test_exps_helpers import FQ1, FQ2
+
+    (tmp_path / "a_1.fq").write_text(FQ1)
+    (tmp_path / "a_2.fq").write_text(FQ2)
+    return ["filter-reads", "--seed", "1", str(tmp_path / "a_1.fq"), str(tmp_path / "a_2.fq")]
+
+
+def _gamp_argv(tmp_path, out):
+    from test_gamp_differential import _write_inputs
+
+    js, gfa = _write_inputs(tmp_path)
+    return ["gamp", str(js), str(tmp_path / "walks"), str(gfa)]
+
+
+def _gaf2sam_argv(tmp_path, out):
+    from test_gaf2sam import _fixture
+
+    gfa, _, gaf = _fixture(tmp_path)
+    return ["gaf2sam", str(gaf), str(gfa)]
+
+
+def _legacy_argv(name):
+    def argv(tmp_path, out):
+        from test_legacy_tools import _make_gfa
+
+        gfa = str(_make_gfa(tmp_path))
+        return ["prune", "-w", "2", gfa] if name == "prune" else ["reintroduce-paths", gfa, gfa]
+    return argv
+
+
+def _annotator_argv(name):
+    def argv(tmp_path, out):
+        import test_legacy_annotators as inputs
+
+        make = inputs._mk_junction_inputs if name == "add-junctions" else inputs._mk_haplotype_inputs
+        return [name, *map(str, make(tmp_path))]
+    return argv
+
+
+def _fix_vidx_argv(tmp_path, out):
+    vcf = tmp_path / "v.vcf"
+    vcf.write_text("##fileformat=VCFv4.2\n##contig=<ID=chr4,length=100>\n"
+                   "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n"
+                   "chr4\t10\t.\tA\tT\t.\t.\t.\n")
+    return ["fix-vidx", str(vcf)]
+
+
+def _clean_gtf_argv(tmp_path, out):
+    from test_exps_helpers import GTF
+
+    (tmp_path / "g.gtf").write_text(GTF)
+    return ["clean-gtf", str(tmp_path / "g.gtf")]
+
+
+def _support_argv(name):
+    def argv(tmp_path, out):
+        from test_support import _gtf
+
+        events, sam = tmp_path / "ev.txt", tmp_path / "a.sam"
+        events.write_text("c:300-400\n")
+        sam.write_text("@HD\tVN:1.5\nr1\t0\tc\t150\t60\t51M99N50M\t*\t0\t0\t*\t*\n")
+        tail = [str(sam)] if name == "check-coverage" else []
+        return [name, str(events), str(_gtf(tmp_path)), *tail]
+    return argv
+
+
+def _scoring_argv(name):
+    def argv(tmp_path, out):
+        from test_cmp_tools import _fixture
+
+        truth, pantas, rmats, whippet, suppa = map(str, _fixture(tmp_path))
+        if name == "eval":  # the simulator's truth table, not the comparator's
+            (tmp_path / "sim_truth.csv").write_text(
+                "etype,gene,transcript,chrom,strand,region1,region2,region3\n"
+                "ES,G1,T1,c,+,c:100-200,c:300-400,c:100-400\n")
+            return ["eval", str(tmp_path / "sim_truth.csv"), pantas]
+        return ["cmp", "-t", truth, "-p", pantas, "-r", rmats, "-w", whippet, "-s", suppa]
+    return argv
+
+
+def _convert_rmats_argv(tmp_path, out):
+    from test_converters import _rmats_dir
+
+    return ["convert-rmats", str(_rmats_dir(tmp_path)), "-o", out]
+
+
+def _convert_suppa_argv(tmp_path, out):
+    dpsi = tmp_path / "cmp.dpsi"
+    dpsi.write_text("name\tdPSI\tpval\ng1;SE:2L:100-200:300-400:+\t0.5\t0.01\n")
+    return ["convert-suppa", str(dpsi), "-o", out]
+
+
+def _bench_table_argv(tmp_path, out):
+    from test_bench_tools import SAMPLE
+
+    (tmp_path / "bench").mkdir()
+    (tmp_path / "bench" / "rmats.time").write_text(SAMPLE)
+    return ["bench-table", str(tmp_path / "bench")]
+
+
+# the host tools: arguments of each on the inputs its own tests build
+HOST_TOOLS = {
+    "map": lambda tmp_path, out: ["map", *_mapper_inputs(tmp_path), "-o", out],
+    "map-accuracy": lambda tmp_path, out: ["map-accuracy", _mapper_inputs(tmp_path)[0],
+                                           "-n", "20", "-l", "60", "-d", "0,0.02"],
+    "prefilter": _prefilter_argv,
+    "filter-reads": _filter_reads_argv,
+    "gamp": _gamp_argv,
+    "gaf2sam": _gaf2sam_argv,
+    "prune": _legacy_argv("prune"),
+    "reintroduce-paths": _legacy_argv("reintroduce-paths"),
+    "add-junctions": _annotator_argv("add-junctions"),
+    "add-haplotypes": _annotator_argv("add-haplotypes"),
+    "fix-vidx": _fix_vidx_argv,
+    "clean-gtf": _clean_gtf_argv,
+    "introns": lambda tmp_path, out: ["introns", "-g", _synthetic_annotation(tmp_path)[1],
+                                      "-o", out],
+    "check-coverage": _support_argv("check-coverage"),
+    "check-novel": _support_argv("check-novel"),
+    "sim": lambda tmp_path, out: ["sim", *_synthetic_annotation(tmp_path), "-o", out,
+                                  "-n", "2", "-r", "10"],
+    "eval": _scoring_argv("eval"),
+    "cmp": _scoring_argv("cmp"),
+    "convert-rmats": _convert_rmats_argv,
+    "convert-suppa": _convert_suppa_argv,
+    "timev": lambda tmp_path, out: ["timev", "-o", out, "--", sys.executable, "-c", "pass"],
+    "bench-table": _bench_table_argv,
+}
+# what a tool writes when it is neither ``-o out`` nor stdout
+PRODUCED = {"filter-reads": "a_1.clean.fq", "sim": "out_truth.csv"}
+
+
 @pytest.mark.parametrize("case", [
     "build",
     "augment:native", "augment:host", "augment:device", "augment:device-py",
@@ -88,6 +253,7 @@ def _argv(case, tmp_path):
     "call:host", "call:device",
     "quant", "remap",
     "augment-dist", "replicate", "reduce", "novel-sites",
+    *HOST_TOOLS,
 ])
 def test_owned_subcommand_loads_nothing_foreign(tmp_path, case):
     argv = _argv(case, tmp_path)
@@ -96,8 +262,8 @@ def test_owned_subcommand_loads_nothing_foreign(tmp_path, case):
     assert proc.returncode == 0, proc.stderr[-2000:]
     report = json.loads(proc.stderr.strip().splitlines()[-1])
     assert report == {"rc": 0, "foreign": []}
-    produced = tmp_path / "out"
-    if "-o" not in argv:
+    produced = tmp_path / PRODUCED.get(case, "out")
+    if "-o" not in argv and case not in PRODUCED:
         produced.write_text(proc.stdout)
     assert produced.exists() and (produced.is_dir() or produced.stat().st_size > 0)
 
@@ -130,8 +296,13 @@ def test_port_cli_knows_every_pantas_tpu_subcommand(capsys):
     from pantas_tpu_torch import cli
 
     assert set(cli._COMMANDS) == set(tpu_cli._COMMANDS)
-    assert set(cli._OWN) == {"build", "augment", "augment-dist", "call", "quant", "remap",
-                             "replicate", "reduce", "novel-sites"}
+    assert set(cli._OWN) == {
+        "build", "augment", "augment-dist", "call", "quant", "remap", "replicate", "reduce",
+        "novel-sites", "map", "map-accuracy", "prefilter", "filter-reads", "gamp", "gaf2sam",
+        "prune", "reintroduce-paths", "add-junctions", "add-haplotypes", "fix-vidx",
+        "clean-gtf", "introns", "check-coverage", "check-novel", "sim", "eval", "cmp",
+        "convert-rmats", "convert-suppa", "timev", "bench-table"}
+    assert set(cli._NOT_PORTED) == {"compare-rtpcr", "parse-res", "plot-pr", "latex-table", "exp"}
     assert cli.main(["--help"]) == 0
     usage = capsys.readouterr().out
     for name in tpu_cli._COMMANDS:
