@@ -103,6 +103,18 @@ Run from the root of a checkout, on a machine with a CUDA card:
     every simulated ES and IR event must be recovered (the other rates are
     printed, not judged). The host tools run as subprocesses of the CLI
     through the probe of phase 11, so each reports the modules it loaded.
+14. ``exp`` at the 10 Mbp graph on phase 13's reads: a JSON config with the
+    pangenome pre-placed in its workdir (the build is skipped), conditions
+    ``c1`` and ``c2`` of one paired replicate each, ``call`` ``w 3 --novel
+    --minintronsize 20``, novel sites with their quantification, and
+    ``eval`` with cuts 1, 3, 5, through the CLI and the probe under
+    ``PYTHONHASHSEED=0``. Its log must name the native alignment core and
+    hold no fallback; each replicate's GAF must equal phase 13's byte for
+    byte; each replicate's event rows must equal the host ``call`` of phase
+    13's device-augmented GFA, run through the probe under the same hash
+    seed; every simulated ES and IR event must be recovered. A second run
+    must reuse every stage. Then ``plot-pr --no-figure`` and ``latex-table``
+    on its per-cut scores. ``exp`` is host code: it launches no kernel.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -117,6 +129,7 @@ import io
 import json
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -969,6 +982,7 @@ MAPPED_EVENTS = 48
 MAPPED_DEPTH = 500
 MAPPED_MIN_WHOLE = 4
 MAPPED_CALL_FLAGS = ["--rca", "3", "--novel", "--minintronsize", "20"]
+MAPPED_DIR = "smoke_mapped"  # phase 13's directory, read by phase 14 and deleted by it
 HOST_TOOL_TIMEOUT_S = 300
 
 
@@ -993,14 +1007,13 @@ def _port_cli(argv: list, stdout=None) -> tuple:
 def mapped_path(label: str, wd: Path, gfa: Path) -> tuple:
     """Phase 13: simulated reads with errors, mapped by the port's mapper,
     through kernel #1 on the card, then called, quantified, remapped and
-    scored. Returns (kernel #1's launches over both conditions, the mapped
-    batches' record of ``real_batches``)."""
-    import shutil
-
+    scored. Leaves ``MAPPED_DIR`` (reads, GAFs, device-augmented GFAs) for
+    phase 14, which deletes it. Returns (kernel #1's launches over both
+    conditions, the mapped batches' record of ``real_batches``)."""
     from pantas_tpu_torch import cli
-    from pantas_tpu_torch.eval.compare import parse_quant_remap, parse_truth, score
+    from pantas_tpu_torch.eval.compare import parse_truth
 
-    md = wd / "smoke_mapped"
+    md = wd / MAPPED_DIR
     shutil.rmtree(md, ignore_errors=True)
     md.mkdir()
     fa, gtf = wd / "g.fa", wd / "g.gtf"
@@ -1081,7 +1094,6 @@ def mapped_path(label: str, wd: Path, gfa: Path) -> tuple:
         print(f"[mapped] call {' '.join(MAPPED_CALL_FLAGS)} on {cond}: device engine {dev_s:.3f} s, "
               f"host engine {host_s:.3f} s, {len(events)} rows equal {kinds}; candidates on "
               f"cuda {({f: rec['candidates'] for f, rec in seen.items()})} [{label}]", flush=True)
-        aug.unlink()
 
     _port_cli(["quant", "-a", "--c1", md / "c1.events.csv", "--c2", md / "c2.events.csv",
                "-o", md / "quant.csv"])
@@ -1089,17 +1101,99 @@ def mapped_path(label: str, wd: Path, gfa: Path) -> tuple:
     with open(md / "scores.csv", "w") as fh:
         _port_cli(["eval", md / "sim_truth.csv", md / "remap.csv", "--relax", "5",
                    "--min-dpsi", "0.1"], stdout=fh)
-    table = (md / "scores.csv").read_text().strip().splitlines()
-    results = score(truth, parse_quant_remap(str(md / "remap.csv")), relax=5, min_dpsi=0.1)
+    table = _recovered(md / "scores.csv", truth, "mapped")
+    print(f"[mapped] quant -a, remap -i 20, eval --relax 5 --min-dpsi 0.1 against sim's truth: "
+          f"every simulated ES and IR event recovered; {table} [{label}]", flush=True)
+    return total_launches, batches
+
+
+def _recovered(scores_csv: Path, truth: list, label: str) -> str:
+    """Every simulated ES and IR event in ``eval``'s table; returns the table
+    on one line."""
+    table = scores_csv.read_text().strip().splitlines()
+    tp = {row.split(",")[0]: int(row.split(",")[1]) for row in table[1:]}
     for etype in ("ES", "IR"):  # the kinds a graph junction can express
         want = sum(1 for t in truth if t.etype == etype)
-        if not want or results[etype]["tp"] != want:
-            raise RuntimeError(f"mapped: {results[etype]['tp']} of {want} simulated {etype} "
-                               f"events recovered: {table}")
-    print(f"[mapped] quant -a, remap -i 20, eval --relax 5 --min-dpsi 0.1 against sim's truth: "
-          f"every simulated ES and IR event recovered; {' | '.join(table)} [{label}]", flush=True)
-    shutil.rmtree(md)
-    return total_launches, batches
+        if not want or tp.get(etype) != want:
+            raise RuntimeError(f"{label}: {tp.get(etype)} of {want} simulated {etype} events "
+                               f"recovered: {table}")
+    return " | ".join(table)
+
+
+def exp_path(label: str, wd: Path, gfa: Path) -> None:
+    """Phase 14: ``exp`` on phase 13's reads at the 10 Mbp graph, from a JSON
+    config, with the pangenome pre-placed so the build is skipped; then its
+    rerun, and ``plot-pr --no-figure`` and ``latex-table`` on its scores."""
+    from pantas_tpu_torch.eval.compare import parse_truth
+
+    md = wd / MAPPED_DIR
+    ed = md / "exp"
+    ed.mkdir()
+    try:
+        os.link(gfa, ed / "pantranscriptome-annotated.gfa")
+    except OSError:
+        shutil.copyfile(gfa, ed / "pantranscriptome-annotated.gfa")
+    threads = os.cpu_count() or 1
+    config = md / "exp.json"
+    config.write_text(json.dumps({
+        "fa": str(wd / "g.fa"), "gtf": str(wd / "g.gtf"), "vcf": str(wd / "g.vcf"),
+        "workdir": str(ed),
+        "conditions": {c: [[str(md / f"sim_{c}_1.fq"), str(md / f"sim_{c}_2.fq")]]
+                       for c in ("c1", "c2")},
+        "call": {"w": 3, "novel": True, "minintronsize": 20},
+        "remap": {"min_intron_size": 20},
+        "novel_sites": {"quant": True},
+        "eval": {"truth": str(md / "sim_truth.csv"), "min_dpsi": 0.1, "relax": 5,
+                 "cuts": [1, 3, 5]},
+        "threads": threads,
+    }))
+    log, first_s = _port_cli(["exp", config])
+    # the mapper and the coverage engine both fall back in silence: the log tells
+    if ("build: reusing existing pangenome" not in log
+            or log.count("[map] native alignment core") != 2 or "python path" in log
+            or "native coverage unavailable" in log):
+        raise RuntimeError(f"exp: the build was not skipped, or the native alignment core or "
+                           f"the native coverage engine did not run: {log[-2000:]}")
+    walls = dict(re.findall(r"\[exp\] (c[12]_r1): map\+call ([0-9.]+)s", log))
+    for cond in ("c1", "c2"):
+        if (ed / f"{cond}_r1.gaf").read_bytes() != (md / f"{cond}.gaf").read_bytes():
+            raise RuntimeError(f"exp: {cond}_r1.gaf differs from phase 13's {cond}.gaf")
+        host_csv = md / f"{cond}.exp_host.csv"
+        with open(host_csv, "w") as fh:  # under the probe's hash seed, as exp runs
+            _port_cli(["call", *MAPPED_CALL_FLAGS, md / f"{cond}.aug.gfa", wd / "g.gtf"],
+                      stdout=fh)
+        rows = sorted((ed / f"{cond}_r1.events.csv").read_text().splitlines())
+        if rows != _sorted_rows(host_csv) or len(rows) < 2:
+            raise RuntimeError(f"exp: {cond}_r1.events.csv ({len(rows)} rows) differs from "
+                               f"the host call on phase 13's device-augmented GFA")
+    missing = [n for n in ("sites_quant.csv", "scores.csv", "scores_by_cut.csv", "c1_r1.sites.csv",
+                           "c2_r1.sites.csv") if not (ed / n).exists()]
+    if missing:
+        raise RuntimeError(f"exp wrote no {missing}")
+    scores = _recovered(ed / "scores.csv", parse_truth(str(md / "sim_truth.csv")), "exp")
+    n_events = re.search(r"quant-remap: (\d+) events", log).group(1)
+
+    again, rerun_s = _port_cli(["exp", config])
+    if "map+call" in again or again.count("reusing") != 3:
+        raise RuntimeError(f"exp rerun did not reuse every stage: {again[-2000:]}")
+
+    tables = {}
+    for argv in (["plot-pr", ed / "cmp.csv", "--scores", f"3={ed / 'scores_by_cut.csv'}",
+                  "--no-figure"], ["latex-table", ed / "cmp.csv"]):
+        out = md / f"{argv[0]}.txt"
+        with open(out, "w") as fh:
+            _port_cli(argv, stdout=fh)
+        tables[argv[0]] = out.read_text().strip().splitlines()
+        if len(tables[argv[0]]) < 2:
+            raise RuntimeError(f"{argv[0]} printed {tables[argv[0]]}")
+    print(f"[exp] exp at the 10 Mbp graph on phase 13's reads, -t {threads}: first run "
+          f"{first_s:.2f} s (map+call c1 {walls.get('c1_r1')} s, c2 {walls.get('c2_r1')} s), "
+          f"rerun {rerun_s:.2f} s (every stage reused); build skipped, native alignment core "
+          f"and native coverage engine, GAFs byte-equal to phase 13's, events rows equal to "
+          f"the host call's under one hash seed, {n_events} quant-remap events, every "
+          f"simulated ES and IR event recovered; {scores} [{label}]", flush=True)
+    for name, lines in tables.items():
+        print(f"[exp] {name}: " + " | ".join(lines) + f" [{label}]", flush=True)
 
 
 def main() -> int:
@@ -1157,7 +1251,11 @@ def main() -> int:
         aug.unlink()
     dist_launches = dist_path(label, wd, gfa, gaf, ref_sha, launches)
     entry_points(label, wd, gfa, gaf, call_rows)
-    mapped_launches, mapped = mapped_path(label, wd, gfa)
+    try:
+        mapped_launches, mapped = mapped_path(label, wd, gfa)
+        exp_path(label, wd, gfa)
+    finally:
+        shutil.rmtree(wd / MAPPED_DIR, ignore_errors=True)
     device_us = profile_split(25, label)
     profile_split(28, label)
     isolation()

@@ -1,12 +1,13 @@
 """Command-line interface of the PyTorch port: ``python -m pantas_tpu_torch``.
 
 The subcommands are ``pantas_tpu``'s (see ``pantas_tpu/cli.py``), and so are
-their flags. This CLI owns 31 of them, each on this package's own code: the
-pipeline's stages ``build``, ``augment``, ``call``, ``quant`` and ``remap``,
-the multi-process ``augment-dist``, ``replicate``, the mapper (``map``,
-``prefilter``, ``filter-reads``, ``map-accuracy``), the graph tools, the
-analysis tools and the host-only part of the evaluation harness (``sim``,
-``eval``, ``cmp``, the converters, ``timev``, ``bench-table``).
+their flags. This CLI owns all 36 of them, each on this package's own code:
+the pipeline's stages ``build``, ``augment``, ``call``, ``quant`` and
+``remap``, the multi-process ``augment-dist``, ``replicate``, the mapper
+(``map``, ``prefilter``, ``filter-reads``, ``map-accuracy``), the graph
+tools, the analysis tools and the evaluation harness (``exp``, ``sim``,
+``eval``, ``cmp``, ``compare-rtpcr``, the converters, ``parse-res``,
+``plot-pr``, ``latex-table``, ``timev``, ``bench-table``).
 
 ``augment --engine device`` (native parse -> device scatter-add) and
 ``--engine device-py`` (Python tokenizer -> device) run on ``--device``
@@ -16,11 +17,10 @@ or ``--mesh DxK``, on a mesh of them; the host engines (``auto``, ``native``,
 over ``torch.distributed``, each rank on its own ``--device``. ``call
 --engine device [--mesh N]`` runs the bitset finders on ``--device``,
 ``--engine host`` the host caller. Every other owned subcommand is host code
-and takes no device.
-
-The five subcommands of ``pantas_tpu`` that are left (``compare-rtpcr``,
-``parse-res``, ``plot-pr``, ``latex-table``, ``exp``) are listed by ``--help``
-and exit 2 with a message: they are not ported yet.
+and takes no device: ``exp`` among them, which runs the native host
+coverage engine as ``pantas_tpu``'s does. The figures of ``plot-pr`` and
+``parse-res --figures`` need matplotlib, seaborn and pandas; ``plot-pr
+--no-figure`` and ``latex-table`` need none of them.
 """
 
 from __future__ import annotations
@@ -32,14 +32,6 @@ import sys
 import time
 
 from pantas_tpu_torch import __version__
-
-NOT_PORTED = "is not ported to pantas_tpu_torch yet (see ROADMAP.md)"
-
-
-def _refuse(what: str) -> int:
-    print(f"[pantas-tpu-torch] {what} {NOT_PORTED}", file=sys.stderr)
-    return 2
-
 
 def _cmd_build(argv):
     ap = argparse.ArgumentParser(prog="pantas-tpu-torch build")
@@ -831,6 +823,179 @@ def _cmd_bench_table(argv):
     return 0
 
 
+def _cmd_parse_res(argv):
+    ap = argparse.ArgumentParser(
+        prog="pantas-tpu-torch parse-res",
+        description="Aggregate per-tool event CSVs into res/res_mask/venn tables",
+    )
+    ap.add_argument("-o", dest="outdir", required=True)
+    ap.add_argument(
+        "--pantas", nargs="+", required=True, metavar="W=CSV",
+        help="pantas quant-remap CSVs, one per -w (e.g. 3=quant-remap.w3.csv)",
+    )
+    ap.add_argument("--rmats", required=True, help="converted rMATS CSV")
+    ap.add_argument("--suppa", required=True, help="converted SUPPA2 CSV")
+    ap.add_argument("--whippet", required=True, help="Whippet .diff")
+    ap.add_argument("--min-dpsi", type=float, default=0.0)
+    ap.add_argument("--relax", type=int, default=4)
+    ap.add_argument(
+        "--figures", action="store_true",
+        help="also render the parse_res.py figure suite (corr/venn PNGs)",
+    )
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.aggregate import (
+        aggregate,
+        parse_pantas_csv,
+        parse_rmats_csv,
+        parse_suppa_csv,
+        parse_whippet_diff,
+        venn_counts,
+        write_res_csvs,
+    )
+
+    pantas = {}
+    for spec in args.pantas:
+        w, eq, path = spec.partition("=")
+        if not w or not eq or not path:
+            ap.error(f"--pantas expects W=CSV specs, got {spec!r}")
+        pantas[w] = parse_pantas_csv(path, args.min_dpsi)
+    cols, rows = aggregate(
+        pantas,
+        parse_rmats_csv(args.rmats, args.min_dpsi),
+        parse_suppa_csv(args.suppa, args.min_dpsi),
+        parse_whippet_diff(args.whippet, args.min_dpsi),
+        relax=args.relax,
+    )
+    os.makedirs(args.outdir, exist_ok=True)
+    write_res_csvs(
+        cols, rows,
+        os.path.join(args.outdir, "res.csv"),
+        os.path.join(args.outdir, "res_mask.csv"),
+    )
+    with open(os.path.join(args.outdir, "venn_counts.csv"), "w") as out:
+        venn_counts(cols, rows, out)
+    if args.figures:
+        from pantas_tpu_torch.eval.plots import render_res_figures
+
+        written = render_res_figures(
+            os.path.join(args.outdir, "res.csv"),
+            os.path.join(args.outdir, "res_mask.csv"),
+            args.outdir,
+            list(pantas.keys()),
+        )
+        print(f"[parse-res] {len(written)} figures rendered", file=sys.stderr)
+    print(f"[parse-res] {len(rows)} events -> {args.outdir}", file=sys.stderr)
+    return 0
+
+
+def _cmd_plot_pr(argv):
+    ap = argparse.ArgumentParser(
+        prog="pantas-tpu-torch plot-pr",
+        description="Truth-support table + 2x2 P/R panel from compare CSVs "
+        "(plot_pr.py equivalent)",
+    )
+    ap.add_argument("csv", nargs="?", default=None,
+                    help="concatenated compare CSV (cmp output)")
+    ap.add_argument(
+        "--scores", nargs="+", metavar="W=CSV", default=None,
+        help="build the compare CSV from experiment scores_by_cut CSVs "
+        "(one per -w) instead of reading one",
+    )
+    ap.add_argument("-o", dest="out_png", default=None,
+                    help="output PNG (default: <csv>.png)")
+    ap.add_argument("--no-figure", action="store_true",
+                    help="print the truth table only")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.plots import (
+        PR_CSV_HEADER,
+        pr_csv_lines_from_scores,
+        render_pr,
+        truth_support_lines,
+    )
+
+    csv_path = args.csv
+    if args.scores:
+        lines = [PR_CSV_HEADER]
+        for spec in args.scores:
+            w, eq, path = spec.partition("=")
+            if not w or not eq or not path:
+                ap.error(f"--scores expects W=CSV specs, got {spec!r} "
+                         "(a positional csv must come BEFORE --scores)")
+            lines.extend(pr_csv_lines_from_scores(path, w))
+        if csv_path is None:
+            if args.out_png is None:
+                ap.error("--scores needs -o OUT.png or a positional csv "
+                         "path to write the converted CSV to")
+            import tempfile
+
+            tmp = tempfile.NamedTemporaryFile(
+                "w", suffix=".csv", delete=False, prefix="plotpr_"
+            )
+            tmp.close()
+            csv_path = tmp.name
+            print(f"[plot-pr] converted CSV: {csv_path}", file=sys.stderr)
+        with open(csv_path, "w") as out:
+            out.write("\n".join(lines) + "\n")
+    elif csv_path is None:
+        ap.error("need a compare CSV or --scores")
+    for line in truth_support_lines(csv_path):
+        print(line)
+    if not args.no_figure:
+        out = render_pr(csv_path, args.out_png)
+        print(f"[plot-pr] wrote {out}", file=sys.stderr)
+    return 0
+
+
+def _cmd_latex_table(argv):
+    ap = argparse.ArgumentParser(
+        prog="pantas-tpu-torch latex-table",
+        description="LaTeX accuracy table from compare CSVs "
+        "(format_latex_table.py equivalent, byte-identical stdout)",
+    )
+    ap.add_argument("csv", help="concatenated compare CSV (cmp output)")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.plots import latex_table_lines
+
+    for line in latex_table_lines(args.csv):
+        print(line)
+    return 0
+
+
+def _cmd_compare_rtpcr(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch compare-rtpcr")
+    ap.add_argument("TRUTH")
+    ap.add_argument("PANTAS")
+    ap.add_argument("RMATS")
+    ap.add_argument("WHIPPET")
+    ap.add_argument("SUPPA")
+    ap.add_argument("--strict", action="store_true")
+    ap.add_argument("--common", action="store_true")
+    ap.add_argument("-d", "--delta", type=float, default=-1)
+    ap.add_argument("-v", "--pvalue", type=float, default=-1)
+    ap.add_argument("-p", "--prob", type=float, default=-1)
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.eval.rtpcr import RtpcrOptions, run_compare
+
+    run_compare(
+        args.TRUTH, args.PANTAS, args.RMATS, args.WHIPPET, args.SUPPA,
+        RtpcrOptions(
+            strict=args.strict, common=args.common,
+            delta=args.delta, pvalue=args.pvalue, prob=args.prob,
+        ),
+    )
+    return 0
+
+
+def _cmd_exp(argv):
+    ap = argparse.ArgumentParser(prog="pantas-tpu-torch exp")
+    ap.add_argument("CONFIG", help="experiment config (JSON)")
+    args = ap.parse_args(argv)
+    from pantas_tpu_torch.experiment import run_experiment
+
+    run_experiment(args.CONFIG)
+    return 0
+
+
 def _cmd_sim(argv):
     ap = argparse.ArgumentParser(prog="pantas-tpu-torch sim")
     ap.add_argument("FA")
@@ -920,12 +1085,14 @@ _OWN = {
     "convert-suppa": _cmd_convert_suppa,
     "timev": _cmd_timev,
     "bench-table": _cmd_bench_table,
+    "exp": _cmd_exp,
+    "compare-rtpcr": _cmd_compare_rtpcr,
+    "parse-res": _cmd_parse_res,
+    "plot-pr": _cmd_plot_pr,
+    "latex-table": _cmd_latex_table,
 }
-# the subcommands of pantas_tpu's CLI that wait for their port
-_NOT_PORTED = ("compare-rtpcr", "parse-res", "plot-pr", "latex-table", "exp")
-_COMMANDS = {**_OWN, **{name: None for name in _NOT_PORTED}}
 
-_USAGE = f"""pantas-tpu-torch [build|augment|call|quant|remap|map|version] -h
+_USAGE = """pantas-tpu-torch [build|augment|call|quant|remap|map|version] -h
 
   pipeline stages:
     build         build and annotate a spliced pangenome
@@ -962,16 +1129,18 @@ _USAGE = f"""pantas-tpu-torch [build|augment|call|quant|remap|map|version] -h
     check-novel   classify skipped exons as novel vs annotated
 
   evaluation harness:
+    exp           run a full two-condition experiment from a JSON config
     sim           simulate AS-event reads with ground truth
     eval          score called events against simulation truth (P/R/F1)
     cmp           multi-tool accuracy comparison vs truth (pantas/rMATS/Whippet/SUPPA2)
+    compare-rtpcr   compare quant output against RT-PCR truth tables
     convert-rmats   rMATS output dir -> comparator CSV
     convert-suppa   SUPPA2 .dpsi -> comparator CSV
+    parse-res     fold comparator outputs into result tables (+ --figures suite)
+    plot-pr       truth-support table + P/R panel PNG from compare CSVs
+    latex-table   LaTeX accuracy table from compare CSVs
     timev         run a command under rusage timing (time -v format log)
     bench-table   fold a directory of .time logs into one CSV
-
-  subcommands of pantas_tpu that are not ported yet (each exits 2):
-    {" ".join(_NOT_PORTED)}
 
     version       print the version
 """
@@ -986,12 +1155,10 @@ def main(argv=None) -> int:
     if mode == "version":
         print(f"pantas-tpu-torch, {__version__}")
         return 0
-    if mode not in _COMMANDS:
-        print(_USAGE, file=sys.stderr)
-        return 1
     fn = _OWN.get(mode)
     if fn is None:
-        return _refuse(mode)
+        print(_USAGE, file=sys.stderr)
+        return 1
     t0 = time.time()
     rc = fn(rest)
     if rc == 0:

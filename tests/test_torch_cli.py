@@ -1,8 +1,10 @@
-"""The port's CLI: augment on the port's engines, subcommands not yet ported
-refused, the native-feed fallback narrowed, no jax loaded on its main path,
-and ``replicate``, ``reduce`` and ``novel-sites`` through both CLIs. That it
-knows every subcommand of pantas_tpu and loads nothing of it is checked in
-test_torch_isolation.py; ``augment-dist`` in test_torch_distributed.py."""
+"""The port's CLI: augment on the port's engines, an unknown subcommand
+answered with the usage, the native-feed fallback narrowed, no jax loaded on
+its main path, and ``replicate``, ``reduce`` and ``novel-sites`` through both
+CLIs. That it owns every subcommand of pantas_tpu and loads nothing of it is
+checked in test_torch_isolation.py; ``augment-dist`` in
+test_torch_distributed.py; ``exp`` in test_torch_experiment.py; the
+comparison and figure tools in test_torch_eval_tools.py."""
 
 import io
 import subprocess
@@ -30,17 +32,11 @@ def test_device_augment_cli_matches_host_engine(tmp_path, engine):
     assert "fallback" not in proc.stderr
 
 
-@pytest.mark.parametrize(
-    "argv",
-    [
-        ["exp", "config.json"],
-        ["plot-pr", "-o", "out", "a.csv"],
-    ],
-    ids=["exp", "plot-pr"],
-)
-def test_unported_device_paths_refuse(argv, capsys):
-    assert cli.main(argv) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+def test_unknown_subcommand_prints_the_usage_and_exits_1(capsys):
+    assert cli.main(["no-such-subcommand", "x"]) == 1
+    captured = capsys.readouterr()
+    assert captured.err.startswith("pantas-tpu-torch [build|augment|") and not captured.out
+    assert "  evaluation harness:\n    exp " in captured.err
 
 
 def test_cuda_device_is_never_replaced_by_cpu(monkeypatch):

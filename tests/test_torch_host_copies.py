@@ -309,10 +309,11 @@ def test_checkpoint_payload_holds_no_package_class(tmp_path, feed, mesh):
     assert modules and all(m.split(".")[0] in ("numpy", "builtins") for m in modules), modules
 
 
-# The mapper and the host tools around it: sixteen files copied with only the
-# package name changed. Three lines of the originals are reworded in the port
-# (a docstring that names a directory outside the repo, and one parameter's
-# name): each is given here by its line number, with the port's text.
+# The mapper, the host tools around it, the experiment module and the
+# comparison and figure layer: twenty files copied with only the package name
+# changed. Eight lines of the originals are reworded in the port (docstrings
+# that name a directory outside the repo, and one parameter's name): each is
+# given here by its line number, with the port's text.
 COPIED_FILES = {
     "mapping/__init__.py": {}, "mapping/mapper.py": {}, "mapping/prefilter.py": {},
     "eval/exps_helpers.py": {}, "build/legacy.py": {}, "coverage/gamp.py": {},
@@ -324,6 +325,15 @@ COPIED_FILES = {
     "eval/cmp_tools.py": {
         317: "def _load_csv(path: str, make_event, min_dpsi: float, skip_haplotype=False,",
         326: "        e = make_event(fields)"},
+    "experiment.py": {},
+    "eval/rtpcr.py": {
+        4: "``exps/3-homo-real/workflow/scripts/compare.py:1-510`` of the reference —"},
+    "eval/aggregate.py": {
+        4: "``exps/2-dm-real/workflow/scripts/parse_res.py:176-320`` of the reference —"},
+    "eval/plots.py": {
+        7: "  ``exps/1-dm-sim/scripts/plot_pr.py:15-101`` of the reference.  The stdout",
+        14: "  ``exps/1-dm-sim/scripts/format_latex_table.py`` of the reference —",
+        19: "  ``exps/2-dm-real/workflow/scripts/parse_res.py:320-816`` of the reference"},
 }
 
 
