@@ -115,6 +115,26 @@ Run from the root of a checkout, on a machine with a CUDA card:
     seed; every simulated ES and IR event must be recovered. A second run
     must reuse every stage. Then ``plot-pr --no-figure`` and ``latex-table``
     on its per-cut scores. ``exp`` is host code: it launches no kernel.
+15. The augment main path on the repo's 100 Mbp graph, the genome-scale
+    cell: ``synth.ensure_graph(100)`` (4 chromosomes, 4 build processes;
+    5.5M nodes, ~236M count slots, a 2^28 bucket: 1 GiB of int32 counts and
+    16,384 windows of kernel #1, its shared-memory count path at its
+    largest) and 1M reads of ``synth_gaf`` (seed 7), each step timed, the
+    GFA's nodes, slots, bucket and sha256 printed. ``augment --engine
+    device`` through the CLI in this process with ``PANTAS_SCATTER`` unset:
+    its log must show the CUDA sorted scatter on 2^28 slots and no fallback,
+    kernel #1's launches must equal the batches (the predicted batches are
+    printed beside them), and its sha256 must equal ``augment --engine
+    native``'s; each augmented GFA is hashed and deleted before the next is
+    written. The stage is split by timing wrappers (tensorize, engine, parse,
+    the batches' host time, read-back, emission) and the card's busy time is
+    summed by CUDA events around each batch, which gives its idle share.
+    Then phase 9's ``real_batches`` on the 2^28 bucket (every batch through
+    kernel #2, kernel #1 and ``index_add_``, equal; the first, middle and
+    last timed beside one bare ``index_add_`` and the bound), and
+    ``python -m pantas_tpu_torch.scripts.bench_scaling`` run in this process
+    on a logical mesh of the card: bit-exact at every shard count, and kernel
+    #1's launches counted in that run equal to its steps times its shards.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -130,6 +150,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -637,18 +658,18 @@ def mesh_path(label: str, wd: Path, gfa: Path, gaf: Path, ref_sha: str) -> int:
 
 
 def real_batches(label: str, gfa: Path, gaf: Path, tag: str = "real",
-                 source: str = "the 1M-read GAF", min_whole: int = 1) -> dict:
+                 source: str = "the 1M-read GAF", min_whole: int = 1, tensors=None) -> dict:
     """Phase 9: the stage's own slot batches through both kernels and
     ``index_add_``. Returns, by picked batch, the timings, the batch's
     statistics and its bound. Phase 13 calls it on a mapped GAF (``tag``
     names the lines, ``source`` the reads) and asks for ``min_whole`` batches
-    without padding."""
+    without padding; phase 15 passes the graph's ``tensors`` it holds."""
     from pantas_tpu_torch.coverage import bench_scatter, kernels
     from pantas_tpu_torch.graph.compiler import compile_gfa
     from pantas_tpu_torch.parallel.mesh import scatter_add_counts
 
     t0 = time.perf_counter()
-    tensors = compile_gfa(str(gfa))
+    tensors = compile_gfa(str(gfa)) if tensors is None else tensors
     batches = bench_scatter.slot_batches(str(gaf), tensors, BATCH)
     n = max(1 << 12, 1 << (tensors.total_slots - 1).bit_length())  # the stage's bucket
     parse_s = time.perf_counter() - t0
@@ -1196,6 +1217,224 @@ def exp_path(label: str, wd: Path, gfa: Path) -> None:
         print(f"[exp] {name}: " + " | ".join(lines) + f" [{label}]", flush=True)
 
 
+# phase 15: the repo's 100 Mbp graph (ensure_graph's own shape at that size) and its reads,
+# made by a process of their own while phases 2-14 run (~10 min on 8 cores)
+BIG_MBP = 100
+BIG_READS = 1_000_000
+BIG_BUCKET = 1 << 28
+BIG_INPUTS_TIMEOUT_S = 1000  # from the start of that process
+BIG_INPUTS = """
+import os, sys, time
+from pantas_tpu_torch.eval.synth import ensure_graph, synth_gaf
+mbp, reads = float(sys.argv[1]), int(sys.argv[2])
+t0 = time.perf_counter()
+wd = ensure_graph(mbp)
+print(f"[big-inputs] ensure_graph {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+gaf = wd / f"reads_{reads}.gaf"
+t0 = time.perf_counter()
+if not gaf.exists():
+    synth_gaf(wd / "out" / "pantranscriptome-annotated.gfa", reads, gaf.with_suffix(".tmp"))
+    os.replace(gaf.with_suffix(".tmp"), gaf)
+print(f"[big-inputs] synth_gaf {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+"""
+
+
+def start_big_inputs() -> tuple:
+    """Start the process that makes phase 15's graph and reads, in a session
+    of its own so that :func:`stop_big_inputs` also reaches its build
+    workers (its stderr in ``.bench/big_inputs.log``); returns (it, its log,
+    when it started)."""
+    log = REPO / ".bench" / "big_inputs.log"
+    log.parent.mkdir(exist_ok=True)
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", BIG_INPUTS, str(BIG_MBP), str(BIG_READS)], cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=str(REPO)), stdin=subprocess.DEVNULL,
+            stdout=subprocess.DEVNULL, stderr=fh, start_new_session=True)
+    return proc, log, time.perf_counter()
+
+
+def stop_big_inputs(proc) -> None:
+    """Kill the inputs' process and its workers if it is still running."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+@contextlib.contextmanager
+def _stage_split():
+    """Time the parts of one ``augment --engine device`` run by wrapping the
+    functions it calls: the tensorize, the native engine's creation, each
+    batch's host time (the synchronous copy and the launches), the read-back
+    and the native emission; the card's busy time is the sum of CUDA event
+    pairs around each batch. Yields the dict the wrappers fill."""
+    from pantas_tpu_torch.coverage import device
+    from pantas_tpu_torch.native.gafcov import NativeCoverage
+
+    split = {"tensorize_s": 0.0, "engine_s": 0.0, "batches_host_s": 0.0, "readback_s": 0.0,
+             "emit_s": 0.0, "stream_s": 0.0}
+    events, stream_start = [], []
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                split[key] += time.perf_counter() - t0
+        return wrapper
+
+    inner_add = device.DeviceCoverage.add_slots
+    inner_result = device.DeviceCoverage.result
+
+    def add_slots(self, *args, **kwargs):
+        if not stream_start:
+            stream_start.append(time.perf_counter())
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        inner_add(self, *args, **kwargs)
+        b.record()
+        events.append((a, b))
+
+    def result(self):
+        if stream_start:
+            split["stream_s"] = time.perf_counter() - stream_start[0]
+        return inner_result(self)
+
+    patches = [
+        (device, "compile_gfa", timed("tensorize_s", device.compile_gfa)),
+        (device, "_native_engine", timed("engine_s", device._native_engine)),
+        (device.DeviceCoverage, "add_slots", timed("batches_host_s", add_slots)),
+        (device.DeviceCoverage, "result", result),
+        (device.DeviceCoverage, "_read_back",
+         timed("readback_s", device.DeviceCoverage._read_back)),
+        (NativeCoverage, "emit", timed("emit_s", NativeCoverage.emit)),
+    ]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield split
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+        torch.cuda.synchronize()
+        split["card_busy_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        # what the stream took besides the batches: the native parse
+        split["parse_s"] = split["stream_s"] - split["batches_host_s"]
+
+
+def big_path(label: str, inputs: tuple) -> dict:
+    """Phase 15: the 100 Mbp graph in its 2^28 bucket: its inputs (from the
+    process of :func:`start_big_inputs`), the device augment against the
+    native engine, the real batches through both kernels, and
+    ``bench_scaling`` on a logical mesh of the card. Returns kernel #1's
+    launches in the stage and in the scaling bench, and the real batches'
+    record of ``real_batches``."""
+    import runpy
+
+    from pantas_tpu_torch import cli
+    from pantas_tpu_torch.coverage import kernels
+    from pantas_tpu_torch.eval.synth import ensure_graph
+    from pantas_tpu_torch.graph.compiler import compile_gfa
+
+    proc, log_path, started = inputs
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(1.0, BIG_INPUTS_TIMEOUT_S - (t0 - started)))
+    except subprocess.TimeoutExpired:
+        stop_big_inputs(proc)
+        raise RuntimeError(f"the {BIG_MBP} Mbp inputs took over {BIG_INPUTS_TIMEOUT_S} s: "
+                           f"{log_path.read_text()[-1500:]}") from None
+    waited_s = time.perf_counter() - t0
+    made = log_path.read_text()
+    if rc:
+        raise RuntimeError(f"the {BIG_MBP} Mbp inputs failed ({rc}): {made[-1500:]}")
+    graph_s, reads_s = (float(x) for x in re.findall(r"\[big-inputs\] \w+ ([0-9.]+) s", made))
+    wd = ensure_graph(BIG_MBP)  # made: this returns at once
+    gfa = wd / "out" / "pantranscriptome-annotated.gfa"
+    gaf = wd / f"reads_{BIG_READS}.gaf"
+    t0 = time.perf_counter()
+    gfa_sha = _sha256(gfa)
+    hash_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tensors = compile_gfa(str(gfa))
+    tensorize_s = time.perf_counter() - t0
+    bucket = max(1 << 12, 1 << (tensors.total_slots - 1).bit_length())
+    if bucket != BIG_BUCKET:
+        raise RuntimeError(f"{tensors.total_slots} slots fall in a 2^{bucket.bit_length() - 1} "
+                           f"bucket, not 2^{BIG_BUCKET.bit_length() - 1}")
+    print(f"[big] inputs, made while phases 2-14 ran: ensure_graph({BIG_MBP}) {graph_s:.1f} s, "
+          f"synth_gaf {BIG_READS} reads {reads_s:.1f} s, phase 15 waited {waited_s:.1f} s; GFA "
+          f"{gfa.stat().st_size} B, {tensors.n_nodes} nodes, "
+          f"{tensors.total_slots} count slots in a 2^{BIG_BUCKET.bit_length() - 1} bucket "
+          f"({-(-BIG_BUCKET // kernels.WINDOW)} windows), sha256 {gfa_sha} ({hash_s:.1f} s); "
+          f"GAF {gaf.stat().st_size} B; tensorize {tensorize_s:.1f} s [{label}]", flush=True)
+
+    out = wd / "smoke_big.gfa"
+    t0 = time.perf_counter()
+    if cli.main(["augment", "--engine", "native", str(gaf), str(gfa), "-o", str(out)]):
+        raise RuntimeError(f"native augment of the {BIG_MBP} Mbp graph failed")
+    native_s = time.perf_counter() - t0
+    native_sha = _sha256(out)
+    out.unlink()
+    with _stage_split() as split:
+        log, counted, device_s, batches = _device_augment(gaf, gfa, out, {"PANTAS_SCATTER": None})
+    dev_sha = _sha256(out)
+    out.unlink()
+    launches = counted["sorted_coverage_scatter_add"]
+    impl = next(ln for ln in log.splitlines() if ln.startswith("[device] scatter impl: "))
+    predicted = int(re.search(r"~(\d+) batches expected", impl).group(1))
+    if _decision(log) != "cuda-sorted" or f"({BIG_BUCKET} slots," not in impl:
+        raise RuntimeError(f"{BIG_MBP} Mbp device augment: {impl!r} is not the CUDA sorted "
+                           f"scatter on {BIG_BUCKET} slots")
+    if not (launches == batches >= 1) or counted["coverage_scatter_add"]:
+        raise RuntimeError(f"{BIG_MBP} Mbp device augment: {counted} kernel launches for "
+                           f"{batches} batches")
+    if dev_sha != native_sha:
+        raise RuntimeError(f"{BIG_MBP} Mbp device GFA {dev_sha} != native GFA {native_sha}")
+    idle = 1 - split["card_busy_s"] / device_s
+    parts = {k: round(v, 3) for k, v in split.items()}
+    print(f"[big] augment --engine device, {BIG_MBP} Mbp graph, {BIG_READS} reads: "
+          f"{device_s:.3f} s ({BIG_READS / device_s:.0f} reads/s), {launches} kernel launches = {batches} batches "
+          f"(~{predicted} predicted), sha256 {dev_sha} == native engine's ({native_s:.3f} s); "
+          f"split {json.dumps(parts)}, the card idle {100 * idle:.2f}% of the stage [{label}]",
+          flush=True)
+
+    real = real_batches(label, gfa, gaf, tag="real100", tensors=tensors,
+                        source=f"the {BIG_MBP} Mbp graph's {BIG_READS}-read GAF")
+    del tensors
+
+    said = io.StringIO()
+    saved_argv = sys.argv
+    saved_env = os.environ.pop("PANTAS_SCATTER", None)
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    try:
+        sys.argv = ["bench_scaling"]
+        with contextlib.redirect_stdout(_Tee(sys.stdout, said)):
+            runpy.run_module("pantas_tpu_torch.scripts.bench_scaling", run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = saved_argv
+        if saved_env is not None:
+            os.environ["PANTAS_SCATTER"] = saved_env
+    scale_s = time.perf_counter() - t0
+    scale_launches = kernels.LAUNCHES["sorted_coverage_scatter_add"]
+    report = json.loads(said.getvalue().strip().splitlines()[-1])
+    shards = [r["devices"] for r in report["scaling"]]
+    if (shards != [1, 2, 4, 8] or not all(r["bit_exact"] for r in report["scaling"])
+            or report["platform"] != "cuda" or kernels.LAUNCHES["coverage_scatter_add"]
+            or scale_launches != 4 * sum(shards)):
+        raise RuntimeError(f"bench_scaling on a logical mesh of the card: {report}, "
+                           f"{dict(kernels.LAUNCHES)} launches")
+    print(f"[big] python -m pantas_tpu_torch.scripts.bench_scaling (8 shards, 2^23 indices, "
+          f"2^20 slots) on a logical mesh of the card: bit-exact at d = {shards}, "
+          f"{scale_launches} kernel launches = 4 steps x shards, {scale_s:.2f} s; shards sharing "
+          f"a card measure nothing about scaling [{label}]", flush=True)
+    return {"launches": launches, "scale_launches": scale_launches, "real": real}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -1234,7 +1473,15 @@ def main() -> int:
               else "not built: the pure-Python GFA loader is used")
     print(f"[build] native engine {native.relative_to(REPO)} in {native_s:.2f} s; GFA loader "
           f"extension {loader} in {time.perf_counter() - t0 - native_s:.2f} s", flush=True)
+    big_inputs = start_big_inputs()
+    try:
+        return _phases(label, kind, big_inputs)
+    finally:
+        stop_big_inputs(big_inputs[0])
 
+
+def _phases(label: str, kind: str, big_inputs: tuple) -> int:
+    """Phases 2-15, then the kernels' record and the last line."""
     shapes = [kernel_vs_plain(25, 25, label), kernel_vs_plain(28, 28, label)]
     direct = [direct_vs_plain(25, 25, label), direct_vs_plain(28, 28, label)]
     uniform = [uniform_vs_plain(25, label), uniform_vs_plain(28, label)]
@@ -1256,6 +1503,7 @@ def main() -> int:
         exp_path(label, wd, gfa)
     finally:
         shutil.rmtree(wd / MAPPED_DIR, ignore_errors=True)
+    big = big_path(label, big_inputs)
     device_us = profile_split(25, label)
     profile_split(28, label)
     isolation()
@@ -1279,6 +1527,12 @@ def main() -> int:
         "real_batch_ms": {k: [v["sorted"], v["library"], v["bound_ms"]] for k, v in real.items()},
         "mapped_batch_ms": {k: [v["sorted"], v["library"], v["bound_ms"]]
                             for k, v in mapped.items()},
+        # phase 15: the 100 Mbp stage's launches, its real batches at 2^28
+        # ([kernel, one bare index_add_, bound] ms) and bench_scaling's launches
+        "launches_2p28": big["launches"],
+        "real_batch_2p28_ms": {k: [v["sorted"], v["library"], v["bound_ms"]]
+                               for k, v in big["real"].items()},
+        "scale_launches": big["scale_launches"],
     }, {
         "name": "coverage_scatter_add",
         "route": "cuda",
@@ -1297,6 +1551,8 @@ def main() -> int:
         "real_batch_ms": {k: [v["direct"], v["library"], v["bound_ms"]] for k, v in real.items()},
         "mapped_batch_ms": {k: [v["direct"], v["library"], v["bound_ms"]]
                             for k, v in mapped.items()},
+        "real_batch_2p28_ms": {k: [v["direct"], v["library"], v["bound_ms"]]
+                               for k, v in big["real"].items()},
         "device_us": {k: (v["direct"] or {}).get("direct_scatter") for k, v in device_us.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {

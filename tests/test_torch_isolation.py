@@ -1,5 +1,6 @@
-"""The port stands on its own: no subcommand it owns, and neither entry point
-of ``graft_entry``, loads ``jax`` or any
+"""The port stands on its own: no subcommand it owns, no script of
+``pantas_tpu_torch.scripts`` (nor anything under ``scripts/``), and neither
+entry point of ``graft_entry``, loads ``jax`` or any
 module of ``pantas_tpu``, its sources import neither, and its CLI owns every
 subcommand of ``pantas_tpu``'s."""
 
@@ -16,6 +17,8 @@ from fixtures_call import write_call_fixtures
 from fixtures_micro import write_micro
 from fixtures_quant import write_quant_fixtures
 from test_torch_cli import REPLICATE_GTF
+from test_torch_scripts import NAMES as SCRIPT_NAMES
+from test_torch_scripts import run_script, script_argv
 
 FOREIGN_IMPORT = re.compile(r"^\s*(from|import)\s+(pantas_tpu(\.|\s|$)|jax(\.|\s|$))", re.M)
 
@@ -317,6 +320,17 @@ def test_owned_subcommand_loads_nothing_foreign(tmp_path, case):
     if "-o" not in argv and case not in PRODUCED:
         produced.write_text(proc.stdout)
     assert produced.exists() and (produced.is_dir() or produced.stat().st_size > 0)
+
+
+@pytest.mark.parametrize("name", SCRIPT_NAMES)
+def test_script_loads_nothing_foreign(tmp_path, name):
+    """``python -m pantas_tpu_torch.scripts.<name>`` at its tiny size on the
+    CPU loads no module of ``pantas_tpu``, no ``jax`` and nothing under
+    ``scripts/``."""
+    argv, cache = script_argv(name, tmp_path)
+    env = {"CALL_SCALE_PLATFORM": "cpu"} if name == "bench_call_scale" else None
+    _, report = run_script("pantas_tpu_torch", name, argv, tmp_path, cache=cache, env=env)
+    assert report == {"foreign": [], "scripts": []}
 
 
 @pytest.mark.parametrize("call", ["entry('cpu')[0](*graft_entry.entry('cpu')[1])",
