@@ -135,6 +135,16 @@ Run from the root of a checkout, on a machine with a CUDA card:
     ``python -m pantas_tpu_torch.scripts.bench_scaling`` run in this process
     on a logical mesh of the card: bit-exact at every shard count, and kernel
     #1's launches counted in that run equal to its steps times its shards.
+16. The port's bench, ``python -m pantas_tpu_torch.bench --multiplier
+    BENCH_MULTIPLIER`` in a process of its own, on phase 3's 10 Mbp graph (its
+    synthetic example: reads of ``sim`` mapped by the port) and phase 15's
+    100 Mbp cache: it must exit 0 and print its one JSON line with the root
+    bench's four keys; its log must hold the device call rows equal to the
+    host caller's, every device augment's sha256 equal to the native
+    engine's (the warm-up, three A/B pairs, the CPU run and the two runs on
+    the 100 Mbp graph in its 2^28 bucket), the choice of ``auto`` on a fresh
+    cache, and kernel #1's launches over the bench, which go into the
+    kernels' record as ``bench_launches``.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -740,38 +750,22 @@ def isolation() -> None:
 
 def _device_call(argv: list) -> tuple:
     """``call --engine device`` through the port's CLI on the card, with
-    ``_eval_match`` wrapped to time each evaluation (copy to the card, match,
-    synchronise, read-back) and to note its candidates and table bytes.
-    ``EVALS`` is zeroed just before and read just after; every finder that
-    had candidates must have evaluated them all on ``cuda``, and none on
-    ``cpu``. Returns (per-finder record, wall seconds)."""
+    ``_eval_match`` wrapped (``bench.eval_split``) to time each evaluation
+    (copy to the card, match, synchronise, read-back) and to note its
+    candidates and table bytes. ``EVALS`` is zeroed just before and read
+    just after; every finder that had candidates must have evaluated them
+    all on ``cuda``, and none on ``cpu``. Returns (per-finder record, wall
+    seconds)."""
     from pantas_tpu_torch import cli
+    from pantas_tpu_torch.bench import eval_split
     from pantas_tpu_torch.events import batched
 
-    seen = {}
-    inner = batched._eval_match
-
-    def timed(match, tables, index_arrays, devices=None):
-        t0 = time.perf_counter()
-        hits = inner(match, tables, index_arrays, devices)
-        torch.cuda.synchronize()
-        rec = seen.setdefault(match.__name__.removeprefix("match_"),
-                              {"candidates": 0, "table_bytes": 0, "s": 0.0})
-        rec["candidates"] += len(index_arrays[0])
-        rec["table_bytes"] += sum(m.nbytes for m in tables) * len(devices)
-        rec["s"] += time.perf_counter() - t0
-        return hits
-
-    batched._eval_match = timed
-    try:
-        batched.EVALS.clear()
+    with eval_split() as seen:
         t0 = time.perf_counter()
         rc = cli.main(["call", "--engine", "device", "--device", "cuda", *argv])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         evals = dict(batched.EVALS)
-    finally:
-        batched._eval_match = inner
     if rc:
         raise RuntimeError(f"call --engine device exited {rc}")
     want = {(f, "cuda"): rec["candidates"] for f, rec in seen.items()}
@@ -1261,69 +1255,6 @@ def stop_big_inputs(proc) -> None:
     proc.wait()
 
 
-@contextlib.contextmanager
-def _stage_split():
-    """Time the parts of one ``augment --engine device`` run by wrapping the
-    functions it calls: the tensorize, the native engine's creation, each
-    batch's host time (the synchronous copy and the launches), the read-back
-    and the native emission; the card's busy time is the sum of CUDA event
-    pairs around each batch. Yields the dict the wrappers fill."""
-    from pantas_tpu_torch.coverage import device
-    from pantas_tpu_torch.native.gafcov import NativeCoverage
-
-    split = {"tensorize_s": 0.0, "engine_s": 0.0, "batches_host_s": 0.0, "readback_s": 0.0,
-             "emit_s": 0.0, "stream_s": 0.0}
-    events, stream_start = [], []
-
-    def timed(key, fn):
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                split[key] += time.perf_counter() - t0
-        return wrapper
-
-    inner_add = device.DeviceCoverage.add_slots
-    inner_result = device.DeviceCoverage.result
-
-    def add_slots(self, *args, **kwargs):
-        if not stream_start:
-            stream_start.append(time.perf_counter())
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        inner_add(self, *args, **kwargs)
-        b.record()
-        events.append((a, b))
-
-    def result(self):
-        if stream_start:
-            split["stream_s"] = time.perf_counter() - stream_start[0]
-        return inner_result(self)
-
-    patches = [
-        (device, "compile_gfa", timed("tensorize_s", device.compile_gfa)),
-        (device, "_native_engine", timed("engine_s", device._native_engine)),
-        (device.DeviceCoverage, "add_slots", timed("batches_host_s", add_slots)),
-        (device.DeviceCoverage, "result", result),
-        (device.DeviceCoverage, "_read_back",
-         timed("readback_s", device.DeviceCoverage._read_back)),
-        (NativeCoverage, "emit", timed("emit_s", NativeCoverage.emit)),
-    ]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
-    for obj, name, fn in patches:
-        setattr(obj, name, fn)
-    try:
-        yield split
-    finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
-        torch.cuda.synchronize()
-        split["card_busy_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
-        # what the stream took besides the batches: the native parse
-        split["parse_s"] = split["stream_s"] - split["batches_host_s"]
-
-
 def big_path(label: str, inputs: tuple) -> dict:
     """Phase 15: the 100 Mbp graph in its 2^28 bucket: its inputs (from the
     process of :func:`start_big_inputs`), the device augment against the
@@ -1334,6 +1265,7 @@ def big_path(label: str, inputs: tuple) -> dict:
     import runpy
 
     from pantas_tpu_torch import cli
+    from pantas_tpu_torch.bench import stage_split
     from pantas_tpu_torch.coverage import kernels
     from pantas_tpu_torch.eval.synth import ensure_graph
     from pantas_tpu_torch.graph.compiler import compile_gfa
@@ -1378,7 +1310,7 @@ def big_path(label: str, inputs: tuple) -> dict:
     native_s = time.perf_counter() - t0
     native_sha = _sha256(out)
     out.unlink()
-    with _stage_split() as split:
+    with stage_split("cuda") as split:
         log, counted, device_s, batches = _device_augment(gaf, gfa, out, {"PANTAS_SCATTER": None})
     dev_sha = _sha256(out)
     out.unlink()
@@ -1435,6 +1367,57 @@ def big_path(label: str, inputs: tuple) -> dict:
     return {"launches": launches, "scale_launches": scale_launches, "real": real}
 
 
+# phase 16: the port's bench at a cut multiplier (the root bench's is 2000; the stage's
+# work barely moves with it, the process starts and the 100 Mbp runs do not)
+BENCH_MULTIPLIER = 200
+BENCH_TIMEOUT_S = 420
+BENCH_DEVICE_RUNS = 10  # the warm-up, three A/B pairs, the CPU run, two at 100 Mbp
+BENCH_KERNEL_RUNS = 5  # of which kernel #1 runs in the three unset and the two at 100 Mbp
+
+
+def bench_path(label: str) -> int:
+    """Phase 16: ``python -m pantas_tpu_torch.bench`` on the card, checked by
+    its exit code, its last line and the checks its log reports. Returns
+    kernel #1's launches over the bench."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pantas_tpu_torch.bench", "--multiplier", str(BENCH_MULTIPLIER)],
+        capture_output=True, text=True, cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        stdin=subprocess.DEVNULL, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    log = proc.stderr
+    if proc.returncode:
+        raise RuntimeError(f"the bench exited {proc.returncode}: {log[-3000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    if list(result) != ["metric", "value", "unit", "vs_baseline"] or not result["value"] > 0:
+        raise RuntimeError(f"the bench's last line is {result}")
+    launches, runs = map(int, re.search(
+        r"kernel #1 launches over the bench: (\d+), one a batch in each of the (\d+) device",
+        log).groups())
+    chose = re.search(r"auto on a fresh cache chose (\S+)", log)
+    said = {
+        "device call rows equal": "rows equal to the host caller's" in log,
+        "device runs sha256-equal": log.count("sha256 == native engine's") == BENCH_DEVICE_RUNS,
+        "2^28 bucket": f"bucket {BIG_BUCKET})" in log,
+        "auto choice logged": chose is not None,
+        "100 Mbp cache read": "cached 100 Mbp workload absent" not in log,
+        "kernel #1 launched, one a batch": launches > 0 and runs == BENCH_KERNEL_RUNS,
+    }
+    if not all(said.values()):
+        raise RuntimeError(f"the bench's log fails {[k for k, v in said.items() if not v]}: "
+                           f"{log[-3000:]}")
+    keep = ("call (ours)", "call --novel", "call --engine device", "auto on a fresh cache",
+            "device path", "genome", "native best-of-3", "kernel #1 launches over")
+    for line in log.splitlines():
+        if line.startswith("[bench] ") and any(k in line for k in keep):
+            print(line, flush=True)
+    print(f"[bench] python -m pantas_tpu_torch.bench --multiplier {BENCH_MULTIPLIER}: exit 0 "
+          f"in {seconds:.1f} s, {json.dumps(result)}; checks held: {sorted(said)}; auto on a "
+          f"fresh cache chose {chose.group(1)}; kernel #1 launches {launches} = the batches "
+          f"of the {runs} runs that chose it [{label}]", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -1481,7 +1464,7 @@ def main() -> int:
 
 
 def _phases(label: str, kind: str, big_inputs: tuple) -> int:
-    """Phases 2-15, then the kernels' record and the last line."""
+    """Phases 2-16, then the kernels' record and the last line."""
     shapes = [kernel_vs_plain(25, 25, label), kernel_vs_plain(28, 28, label)]
     direct = [direct_vs_plain(25, 25, label), direct_vs_plain(28, 28, label)]
     uniform = [uniform_vs_plain(25, label), uniform_vs_plain(28, label)]
@@ -1504,6 +1487,7 @@ def _phases(label: str, kind: str, big_inputs: tuple) -> int:
     finally:
         shutil.rmtree(wd / MAPPED_DIR, ignore_errors=True)
     big = big_path(label, big_inputs)
+    bench_launches = bench_path(label)
     device_us = profile_split(25, label)
     profile_split(28, label)
     isolation()
@@ -1533,6 +1517,7 @@ def _phases(label: str, kind: str, big_inputs: tuple) -> int:
         "real_batch_2p28_ms": {k: [v["sorted"], v["library"], v["bound_ms"]]
                                for k, v in big["real"].items()},
         "scale_launches": big["scale_launches"],
+        "bench_launches": bench_launches,  # phase 16: python -m pantas_tpu_torch.bench
     }, {
         "name": "coverage_scatter_add",
         "route": "cuda",

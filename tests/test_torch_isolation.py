@@ -1,11 +1,12 @@
 """The port stands on its own: no subcommand it owns, no script of
-``pantas_tpu_torch.scripts`` (nor anything under ``scripts/``), and neither
-entry point of ``graft_entry``, loads ``jax`` or any
+``pantas_tpu_torch.scripts`` (nor anything under ``scripts/``), neither
+entry point of ``graft_entry``, and not its bench loads ``jax`` or any
 module of ``pantas_tpu``, its sources import neither, and its CLI owns every
 subcommand of ``pantas_tpu``'s."""
 
 import io
 import json
+import os
 import re
 import socket
 import subprocess
@@ -16,6 +17,7 @@ from conftest import REPO_ROOT
 from fixtures_call import write_call_fixtures
 from fixtures_micro import write_micro
 from fixtures_quant import write_quant_fixtures
+from test_torch_bench import write_example
 from test_torch_cli import REPLICATE_GTF
 from test_torch_scripts import NAMES as SCRIPT_NAMES
 from test_torch_scripts import run_script, script_argv
@@ -331,6 +333,33 @@ def test_script_loads_nothing_foreign(tmp_path, name):
     env = {"CALL_SCALE_PLATFORM": "cpu"} if name == "bench_call_scale" else None
     _, report = run_script("pantas_tpu_torch", name, argv, tmp_path, cache=cache, env=env)
     assert report == {"foreign": [], "scripts": []}
+
+
+BENCH_PROBE = """
+import json, sys
+from pathlib import Path
+from pantas_tpu_torch import bench
+bench.CACHE = Path(sys.argv[1])
+rc = bench.main(["--device", "cpu", "--multiplier", "2"])
+print(json.dumps({"rc": rc, "foreign": sorted(m for m in sys.modules
+                                              if m.split(".")[0] in ("pantas_tpu", "jax"))}),
+      file=sys.stderr)
+"""
+
+
+def test_bench_loads_nothing_foreign(tmp_path):
+    """``python -m pantas_tpu_torch.bench --device cpu --multiplier 2`` (its
+    ``main``, with its cache in ``tmp_path``) on a tiny example/4 loads no
+    module of ``pantas_tpu`` and no ``jax``."""
+    ref = write_example(tmp_path / "reference")
+    proc = subprocess.run([sys.executable, "-c", BENCH_PROBE, str(tmp_path / "cache")],
+                          capture_output=True, text=True, cwd=REPO_ROOT, timeout=300,
+                          env={**os.environ, "PANTAS_REFERENCE": str(ref),
+                               "PYTHONPATH": str(REPO_ROOT)})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stderr.strip().splitlines()[-1]) == {"rc": 0, "foreign": []}
+    assert list(json.loads(proc.stdout.strip().splitlines()[-1])) == \
+        ["metric", "value", "unit", "vs_baseline"]
 
 
 @pytest.mark.parametrize("call", ["entry('cpu')[0](*graft_entry.entry('cpu')[1])",
