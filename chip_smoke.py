@@ -115,36 +115,51 @@ Run from the root of a checkout, on a machine with a CUDA card:
     seed; every simulated ES and IR event must be recovered. A second run
     must reuse every stage. Then ``plot-pr --no-figure`` and ``latex-table``
     on its per-cut scores. ``exp`` is host code: it launches no kernel.
-15. The augment main path on the repo's 100 Mbp graph, the genome-scale
-    cell: ``synth.ensure_graph(100)`` (4 chromosomes, 4 build processes;
-    5.5M nodes, ~236M count slots, a 2^28 bucket: 1 GiB of int32 counts and
+15. The repo's 100 Mbp graph, the genome-scale cell:
+    ``synth.ensure_graph(100)`` (4 chromosomes, 4 build processes; 5.5M
+    nodes, ~236M count slots, a 2^28 bucket: 1 GiB of int32 counts and
     16,384 windows of kernel #1, its shared-memory count path at its
     largest) and 1M reads of ``synth_gaf`` (seed 7), each step timed, the
-    GFA's nodes, slots, bucket and sha256 printed. ``augment --engine
-    device`` through the CLI in this process with ``PANTAS_SCATTER`` unset:
-    its log must show the CUDA sorted scatter on 2^28 slots and no fallback,
-    kernel #1's launches must equal the batches (the predicted batches are
-    printed beside them), and its sha256 must equal ``augment --engine
-    native``'s; each augmented GFA is hashed and deleted before the next is
-    written. The stage is split by timing wrappers (tensorize, engine, parse,
-    the batches' host time, read-back, emission) and the card's busy time is
-    summed by CUDA events around each batch, which gives its idle share.
-    Then phase 9's ``real_batches`` on the 2^28 bucket (every batch through
-    kernel #2, kernel #1 and ``index_add_``, equal; the first, middle and
-    last timed beside one bare ``index_add_`` and the bound), and
-    ``python -m pantas_tpu_torch.scripts.bench_scaling`` run in this process
-    on a logical mesh of the card: bit-exact at every shard count, and kernel
+    GFA's nodes, slots, bucket and sha256 printed. Then phase 9's
+    ``real_batches`` on the 2^28 bucket (every batch through kernel #2,
+    kernel #1 and ``index_add_``, equal; the first, middle and last timed
+    beside one bare ``index_add_`` and the bound), and ``python -m
+    pantas_tpu_torch.scripts.bench_scaling`` run in this process on a
+    logical mesh of the card: bit-exact at every shard count, and kernel
     #1's launches counted in that run equal to its steps times its shards.
+    The augment main path on this graph is driven by phase 16's bench.
 16. The port's bench, ``python -m pantas_tpu_torch.bench --multiplier
     BENCH_MULTIPLIER`` in a process of its own, on phase 3's 10 Mbp graph (its
     synthetic example: reads of ``sim`` mapped by the port) and phase 15's
-    100 Mbp cache: it must exit 0 and print its one JSON line with the root
-    bench's four keys; its log must hold the device call rows equal to the
-    host caller's, every device augment's sha256 equal to the native
+    100 Mbp graph and reads: it must exit 0 and print its one JSON line with
+    the root bench's four keys; its log must hold the device call rows equal
+    to the host caller's, every device augment's sha256 equal to the native
     engine's (the warm-up, three A/B pairs, the CPU run and the two runs on
     the 100 Mbp graph in its 2^28 bucket), the choice of ``auto`` on a fresh
     cache, and kernel #1's launches over the bench, which go into the
-    kernels' record as ``bench_launches``.
+    kernels' record as ``bench_launches``. Each of the two 100 Mbp runs
+    (``augment_gfa_device_native`` with ``PANTAS_SCATTER`` unset, the counts
+    zeroed just before it) must show the CUDA sorted scatter on 2^28 slots,
+    kernel #1's launches equal to its batches and none of kernel #2; the
+    first run's launches go into the record as ``launches_2p28``. The bench
+    splits each run by timing wrappers (tensorize, engine, parse, the
+    batches' host time, read-back, emission) and sums the card's busy time
+    by CUDA events around each batch, which gives its idle share.
+17. The full-scale protocol's staged layout on the device engines at a cut
+    size: ``python -m pantas_tpu_torch.scripts.run_fullscale_experiment
+    --mode both --engine device`` at ``FULLSCALE_ARGS`` (100,000 pairs, one
+    replicate a condition) on phase 3's 10 Mbp graph, which it must reuse,
+    as a subprocess with ``PANTAS_SCATTER`` unset. It must exit 0; each
+    replicate's device augment must be held by the script (the sorted
+    kernel's scatter, no fallback, kernel launches = batches, sha256 equal
+    to ``augment --engine native``'s: its ``<tag>.device.json``), the
+    device-staged rows must equal the fused host rows, and quant-remap must
+    report events. Kernel #1's launches are read from each replicate's
+    ``<tag>.device.json``. Then :func:`replicate_kernels`, as a real
+    replicate's run on the card uses it: one device augment of condition 1's
+    mapped GAF split by stage in this process (sha256 equal to the script's
+    native one, launches = batches), and phase 9's ``real_batches`` on its slot
+    batches.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -1257,15 +1272,12 @@ def stop_big_inputs(proc) -> None:
 
 def big_path(label: str, inputs: tuple) -> dict:
     """Phase 15: the 100 Mbp graph in its 2^28 bucket: its inputs (from the
-    process of :func:`start_big_inputs`), the device augment against the
-    native engine, the real batches through both kernels, and
-    ``bench_scaling`` on a logical mesh of the card. Returns kernel #1's
-    launches in the stage and in the scaling bench, and the real batches'
-    record of ``real_batches``."""
+    process of :func:`start_big_inputs`), the real batches through both
+    kernels, and ``bench_scaling`` on a logical mesh of the card. Returns
+    kernel #1's launches in the scaling bench and the real batches' record of
+    ``real_batches``."""
     import runpy
 
-    from pantas_tpu_torch import cli
-    from pantas_tpu_torch.bench import stage_split
     from pantas_tpu_torch.coverage import kernels
     from pantas_tpu_torch.eval.synth import ensure_graph
     from pantas_tpu_torch.graph.compiler import compile_gfa
@@ -1303,36 +1315,6 @@ def big_path(label: str, inputs: tuple) -> dict:
           f"({-(-BIG_BUCKET // kernels.WINDOW)} windows), sha256 {gfa_sha} ({hash_s:.1f} s); "
           f"GAF {gaf.stat().st_size} B; tensorize {tensorize_s:.1f} s [{label}]", flush=True)
 
-    out = wd / "smoke_big.gfa"
-    t0 = time.perf_counter()
-    if cli.main(["augment", "--engine", "native", str(gaf), str(gfa), "-o", str(out)]):
-        raise RuntimeError(f"native augment of the {BIG_MBP} Mbp graph failed")
-    native_s = time.perf_counter() - t0
-    native_sha = _sha256(out)
-    out.unlink()
-    with stage_split("cuda") as split:
-        log, counted, device_s, batches = _device_augment(gaf, gfa, out, {"PANTAS_SCATTER": None})
-    dev_sha = _sha256(out)
-    out.unlink()
-    launches = counted["sorted_coverage_scatter_add"]
-    impl = next(ln for ln in log.splitlines() if ln.startswith("[device] scatter impl: "))
-    predicted = int(re.search(r"~(\d+) batches expected", impl).group(1))
-    if _decision(log) != "cuda-sorted" or f"({BIG_BUCKET} slots," not in impl:
-        raise RuntimeError(f"{BIG_MBP} Mbp device augment: {impl!r} is not the CUDA sorted "
-                           f"scatter on {BIG_BUCKET} slots")
-    if not (launches == batches >= 1) or counted["coverage_scatter_add"]:
-        raise RuntimeError(f"{BIG_MBP} Mbp device augment: {counted} kernel launches for "
-                           f"{batches} batches")
-    if dev_sha != native_sha:
-        raise RuntimeError(f"{BIG_MBP} Mbp device GFA {dev_sha} != native GFA {native_sha}")
-    idle = 1 - split["card_busy_s"] / device_s
-    parts = {k: round(v, 3) for k, v in split.items()}
-    print(f"[big] augment --engine device, {BIG_MBP} Mbp graph, {BIG_READS} reads: "
-          f"{device_s:.3f} s ({BIG_READS / device_s:.0f} reads/s), {launches} kernel launches = {batches} batches "
-          f"(~{predicted} predicted), sha256 {dev_sha} == native engine's ({native_s:.3f} s); "
-          f"split {json.dumps(parts)}, the card idle {100 * idle:.2f}% of the stage [{label}]",
-          flush=True)
-
     real = real_batches(label, gfa, gaf, tag="real100", tensors=tensors,
                         source=f"the {BIG_MBP} Mbp graph's {BIG_READS}-read GAF")
     del tensors
@@ -1364,7 +1346,7 @@ def big_path(label: str, inputs: tuple) -> dict:
           f"2^20 slots) on a logical mesh of the card: bit-exact at d = {shards}, "
           f"{scale_launches} kernel launches = 4 steps x shards, {scale_s:.2f} s; shards sharing "
           f"a card measure nothing about scaling [{label}]", flush=True)
-    return {"launches": launches, "scale_launches": scale_launches, "real": real}
+    return {"scale_launches": scale_launches, "real": real}
 
 
 # phase 16: the port's bench at a cut multiplier (the root bench's is 2000; the stage's
@@ -1375,10 +1357,36 @@ BENCH_DEVICE_RUNS = 10  # the warm-up, three A/B pairs, the CPU run, two at 100 
 BENCH_KERNEL_RUNS = 5  # of which kernel #1 runs in the three unset and the two at 100 Mbp
 
 
-def bench_path(label: str) -> int:
+def _genome_runs(log: str) -> list:
+    """The bench's two device augments on the 100 Mbp graph, from its log:
+    each must have run the CUDA sorted scatter on 2^28 slots, launched kernel
+    #1 once a batch and kernel #2 never. Returns, for each, its seconds,
+    kernel #1's launches, batches, predicted batches and the card's idle
+    share in percent."""
+    runs = []
+    for line in log.splitlines():
+        if "genome-scale device augment run" not in line:
+            continue
+        impl = re.search(r"scatter impl: (\S+) \((\d+) slots, ~(\d+) batches expected", line)
+        batches = int(re.search(r"for (\d+) batches", line)[1])
+        first, second = (int(re.search(rf"'{k}': (\d+)", line)[1])
+                         for k in ("sorted_coverage_scatter_add", "coverage_scatter_add"))
+        if (impl is None or impl[1] != "cuda-sorted" or int(impl[2]) != BIG_BUCKET
+                or not first == batches >= 1 or second):
+            raise RuntimeError(f"the bench's {BIG_MBP} Mbp device run is not kernel #1 once a "
+                               f"batch on {BIG_BUCKET} slots: {line}")
+        runs.append({"s": float(re.search(r"reads in ([0-9.]+)s", line)[1]),
+                     "launches": batches, "batches": batches, "predicted": int(impl[3]),
+                     "idle_pct": float(re.search(r"the card idle ([0-9.]+)%", line)[1])})
+    if len(runs) != 2:
+        raise RuntimeError(f"the bench's log holds {len(runs)} {BIG_MBP} Mbp device runs, not 2")
+    return runs
+
+
+def bench_path(label: str) -> dict:
     """Phase 16: ``python -m pantas_tpu_torch.bench`` on the card, checked by
     its exit code, its last line and the checks its log reports. Returns
-    kernel #1's launches over the bench."""
+    kernel #1's launches over the bench and in its first 100 Mbp run."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pantas_tpu_torch.bench", "--multiplier", str(BENCH_MULTIPLIER)],
@@ -1406,6 +1414,7 @@ def bench_path(label: str) -> int:
     if not all(said.values()):
         raise RuntimeError(f"the bench's log fails {[k for k, v in said.items() if not v]}: "
                            f"{log[-3000:]}")
+    genome = _genome_runs(log)
     keep = ("call (ours)", "call --novel", "call --engine device", "auto on a fresh cache",
             "device path", "genome", "native best-of-3", "kernel #1 launches over")
     for line in log.splitlines():
@@ -1414,8 +1423,115 @@ def bench_path(label: str) -> int:
     print(f"[bench] python -m pantas_tpu_torch.bench --multiplier {BENCH_MULTIPLIER}: exit 0 "
           f"in {seconds:.1f} s, {json.dumps(result)}; checks held: {sorted(said)}; auto on a "
           f"fresh cache chose {chose.group(1)}; kernel #1 launches {launches} = the batches "
-          f"of the {runs} runs that chose it [{label}]", flush=True)
-    return launches
+          f"of the {runs} runs that chose it; at {BIG_MBP} Mbp in the 2^28 bucket "
+          f"{[r['launches'] for r in genome]} launches = batches (~{genome[0]['predicted']} "
+          f"predicted), {[r['s'] for r in genome]} s, the card idle "
+          f"{[r['idle_pct'] for r in genome]}% [{label}]", flush=True)
+    return {"launches": launches, "launches_2p28": genome[0]["launches"]}
+
+
+# phase 17: the full-scale experiment on the device engines at a cut size (pairs per
+# replicate, replicates per condition, Mbp: phase 3's graph)
+FULLSCALE_ARGS = ["100000", "1", "10"]
+FULLSCALE_DIR = "smoke_fullscale"
+FULLSCALE_TIMEOUT_S = 600
+
+
+def replicate_kernels(label: str, wd: Path, gfa: Path) -> dict:
+    """Condition 1's mapped reads of a ``run_fullscale_experiment --engine
+    device`` work dir ``wd`` on the kernels: one device augment of
+    ``c1_r1.gaf`` in this process under ``bench.stage_split`` (with
+    ``PANTAS_SCATTER`` unset: the sorted kernel, launches = batches, sha256
+    equal to the native engine's in the script's ``c1_r1.device.json``; the
+    card's busy time by CUDA events), then phase 9's ``real_batches`` on its
+    slot batches. Returns the run's record and that of ``real_batches``."""
+    from pantas_tpu_torch.bench import device_run
+
+    gaf, out = wd / "c1_r1.gaf", wd / "c1_r1.kernels.gfa"
+    held = json.loads((wd / "c1_r1.device.json").read_text())
+    saved = os.environ.pop("PANTAS_SCATTER", None)
+    try:
+        rec = device_run(gaf, gfa, out, "cuda")
+    finally:
+        if saved is not None:
+            os.environ["PANTAS_SCATTER"] = saved
+    sha = _sha256(out)
+    out.unlink()
+    launches = rec["launches"]["sorted_coverage_scatter_add"]
+    if (rec["impl"][-1].split(" (")[0] != "cuda-sorted" or launches != rec["batches"]
+            or rec["launches"]["coverage_scatter_add"] or rec["batches"] != held["batches"]):
+        raise RuntimeError(f"{wd.name}: device augment of c1_r1 in process: {rec}, the "
+                           f"script's record {held}")
+    if sha != held["native_sha256"]:
+        raise RuntimeError(f"{wd.name}: c1_r1's device GFA {sha} != native engine's "
+                           f"{held['native_sha256']}")
+    idle = 1 - rec["split"]["card_busy_s"] / rec["s"]
+    print(f"[replicate] {wd.name}: augment --engine device of c1_r1 ({gaf.stat().st_size} B "
+          f"GAF) in a process's first device augment here: {rec['s']:.3f} s, {launches} kernel "
+          f"launches = {rec['batches']} batches (~{held['batches_expected']} expected), "
+          f"sha256 == native engine's; split {json.dumps(rec['split'])}, the card idle "
+          f"{100 * idle:.2f}% of the stage [{label}]", flush=True)
+    real = real_batches(label, gfa, gaf, tag="replicate",
+                        source=f"{wd.name}'s c1_r1 mapped reads")
+    return {"run": rec, "idle": idle, "real": real}
+
+
+def fullscale_path(label: str) -> dict:
+    """Phase 17: ``run_fullscale_experiment --mode both --engine device`` at
+    ``FULLSCALE_ARGS`` as a subprocess, checked by its exit code, its log and
+    its records; then :func:`replicate_kernels` on its work dir, which is
+    deleted after. Returns kernel #1's launches over the script's device
+    augments (from their ``<tag>.device.json``) and the record of
+    :func:`replicate_kernels`."""
+    from pantas_tpu_torch.eval.synth import ensure_graph
+
+    wd = REPO / ".bench" / FULLSCALE_DIR
+    shutil.rmtree(wd, ignore_errors=True)
+    gfa = ensure_graph(float(FULLSCALE_ARGS[2])) / "out" / "pantranscriptome-annotated.gfa"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("PANTAS_SCATTER", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pantas_tpu_torch.scripts.run_fullscale_experiment", "--mode",
+         "both", "--engine", "device", "--wd", FULLSCALE_DIR, *FULLSCALE_ARGS],
+        capture_output=True, text=True, cwd=REPO, env=env, stdin=subprocess.DEVNULL,
+        timeout=FULLSCALE_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    log = proc.stderr
+    try:
+        if proc.returncode:
+            raise RuntimeError(f"run_fullscale_experiment exited {proc.returncode}: {log[-3000:]}")
+        if "generating" in log:
+            raise RuntimeError("run_fullscale_experiment built its own graph: phase 3's is not "
+                               "where bench_call_scale.ensure_graph looks")
+        # the script held each device augment (scatter, no fallback, launches = batches,
+        # sha256) and fused == staged, or it would not have exited 0: read its records
+        records = [json.loads((wd / f"{tag}.device.json").read_text())
+                   for tag in ("c1_r1", "c2_r1")]
+        launches = sum(rec["launches"] for rec in records)
+        rows = re.findall(r"(c[12]_r1): fused == staged \((\d+) events\)", log)
+        said = [f"{rec['tag']} {rec['launches']} launches = {rec['batches']} batches "
+                f"(~{rec['batches_expected']} expected)" for rec in records]
+        remapped = re.search(r"quant-remap: (\d+) events", log)
+        if remapped is None or int(remapped[1]) < 1:
+            raise RuntimeError(f"quant-remap reported no events: {log[-1500:]}")
+        walls = {}  # stage: wall seconds of each run, from the script's bench.csv
+        for ln in (wd / "bench.csv").read_text().splitlines()[1:]:
+            f = ln.split(",")
+            walls.setdefault(f[1], []).append(float(f[5]))
+        if {k: len(v) for k, v in walls.items()} != {
+                "map": 2, "augment": 2, "augment-native": 2, "call": 2, "replicate": 2,
+                "quant": 1, "remap": 1}:
+            raise RuntimeError(f"bench.csv stages {walls}")
+        print(f"[fullscale] run_fullscale_experiment --mode both --engine device "
+              f"{' '.join(FULLSCALE_ARGS)} (phase 3's graph): exit 0 in {seconds:.1f} s; "
+              f"{'; '.join(said)}; every device GFA sha256 == native engine's, device-staged "
+              f"rows == fused host rows {dict(rows)}; quant-remap {remapped[1]} events; stage "
+              f"walls s {json.dumps(walls)} [{label}]", flush=True)
+        kernels_rec = replicate_kernels(label, wd, gfa)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    return {"launches": launches, **kernels_rec}
 
 
 def main() -> int:
@@ -1464,7 +1580,7 @@ def main() -> int:
 
 
 def _phases(label: str, kind: str, big_inputs: tuple) -> int:
-    """Phases 2-16, then the kernels' record and the last line."""
+    """Phases 2-17, then the kernels' record and the last line."""
     shapes = [kernel_vs_plain(25, 25, label), kernel_vs_plain(28, 28, label)]
     direct = [direct_vs_plain(25, 25, label), direct_vs_plain(28, 28, label)]
     uniform = [uniform_vs_plain(25, label), uniform_vs_plain(28, label)]
@@ -1487,7 +1603,8 @@ def _phases(label: str, kind: str, big_inputs: tuple) -> int:
     finally:
         shutil.rmtree(wd / MAPPED_DIR, ignore_errors=True)
     big = big_path(label, big_inputs)
-    bench_launches = bench_path(label)
+    bench = bench_path(label)
+    fullscale = fullscale_path(label)
     device_us = profile_split(25, label)
     profile_split(28, label)
     isolation()
@@ -1511,13 +1628,19 @@ def _phases(label: str, kind: str, big_inputs: tuple) -> int:
         "real_batch_ms": {k: [v["sorted"], v["library"], v["bound_ms"]] for k, v in real.items()},
         "mapped_batch_ms": {k: [v["sorted"], v["library"], v["bound_ms"]]
                             for k, v in mapped.items()},
-        # phase 15: the 100 Mbp stage's launches, its real batches at 2^28
+        # phase 16's first 100 Mbp stage's launches; phase 15: its real batches at 2^28
         # ([kernel, one bare index_add_, bound] ms) and bench_scaling's launches
-        "launches_2p28": big["launches"],
+        "launches_2p28": bench["launches_2p28"],
         "real_batch_2p28_ms": {k: [v["sorted"], v["library"], v["bound_ms"]]
                                for k, v in big["real"].items()},
         "scale_launches": big["scale_launches"],
-        "bench_launches": bench_launches,  # phase 16: python -m pantas_tpu_torch.bench
+        "bench_launches": bench["launches"],  # phase 16: python -m pantas_tpu_torch.bench
+        # phase 17: the full-scale experiment's device augments (from their logs), the
+        # in-process run of condition 1, and its mapped batches at 2^25
+        "fullscale_launches": fullscale["launches"],
+        "fullscale_probe_launches": fullscale["run"]["launches"]["sorted_coverage_scatter_add"],
+        "fullscale_batch_ms": {k: [v["sorted"], v["library"], v["bound_ms"]]
+                               for k, v in fullscale["real"].items()},
     }, {
         "name": "coverage_scatter_add",
         "route": "cuda",
@@ -1538,6 +1661,8 @@ def _phases(label: str, kind: str, big_inputs: tuple) -> int:
                             for k, v in mapped.items()},
         "real_batch_2p28_ms": {k: [v["direct"], v["library"], v["bound_ms"]]
                                for k, v in big["real"].items()},
+        "fullscale_batch_ms": {k: [v["direct"], v["library"], v["bound_ms"]]
+                               for k, v in fullscale["real"].items()},
         "device_us": {k: (v["direct"] or {}).get("direct_scatter") for k, v in device_us.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {

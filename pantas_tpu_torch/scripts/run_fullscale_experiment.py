@@ -21,13 +21,16 @@ protocol natively at matching scale:
   extrapolation.
 
 Usage: python -m pantas_tpu_torch.scripts.run_fullscale_experiment [pairs_per_rep] [reps_per_cond] [mbp]
+       [--mode staged|fused|both] [--engine native|device] [--device cuda|cpu]
 Defaults: 8,750,000 pairs, 2 replicates per condition, 100 Mbp.
 Outputs: .bench/fullscale/bench.csv (+ stage artifacts), printed summary.
 """
 
 import io
+import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -54,8 +57,26 @@ _ap.add_argument(
     help="workdir name under .bench/ (a smoke run should not share "
     "artifacts with the real one)",
 )
+_ap.add_argument(
+    "--engine", choices=["native", "device"], default="native",
+    help="engines of the staged layout: native = augment --engine native and "
+    "the host call; device = augment --engine device and call --engine device "
+    "on --device, each augment held to its log and to the native engine's GFA",
+)
+_ap.add_argument(
+    "--device", choices=["cuda", "cpu"], default="cuda",
+    help="device of the device engines (default cuda; never falls back)",
+)
 _args = _ap.parse_args()
+if _args.engine == "device" and _args.mode == "fused":
+    _ap.error("--engine device selects the staged layout's engines: use --mode staged or both")
 N_PAIRS, REPS, MBP, MODE = _args.pairs, _args.reps, _args.mbp, _args.mode
+ENGINE, DEVICE = _args.engine, _args.device
+DEVICE_ARGS = ["--device", DEVICE] if ENGINE == "device" else []
+CALL_ENGINE = ["--engine", "device", "--device", DEVICE] if ENGINE == "device" else []
+# the device engines' staged artifacts carry their name, so that a run never reuses
+# another engine's augmented GFA or events in a shared work dir
+STAGED = ".device" if ENGINE == "device" else ""
 
 WD = REPO / ".bench" / _args.wd
 READ_LEN = 150
@@ -132,17 +153,19 @@ def append_file(dst, src):
             out.write(chunk)
 
 
-def timed_stage(tag, time_name, cmd, stdout_path=None):
-    """Run one stage as a subprocess under the timev wrapper."""
+def timed_stage(tag, time_name, cmd, stdout_path=None, stderr_path=None):
+    """Run one stage as a subprocess under the timev wrapper; its stderr goes
+    to ``stderr_path`` (dropped when None)."""
     bench = WD / "bench" / "pantas"
     bench.mkdir(parents=True, exist_ok=True)
     tf = bench / time_name
     full = [PY, "-m", "pantas_tpu_torch", "timev", "-o", str(tf), "--"] + cmd
     log(f"{tag}: {' '.join(cmd[:6])}..")
     out = open(stdout_path, "w") if stdout_path else subprocess.DEVNULL
+    err = open(stderr_path, "w") if stderr_path else subprocess.DEVNULL
     try:
         rc = subprocess.run(
-            full, stdout=out, stderr=subprocess.DEVNULL, cwd=REPO,
+            full, stdout=out, stderr=err, cwd=REPO,
             env=dict(
                 os.environ,
                 PYTHONPATH=f"{REPO}:{os.environ.get('PYTHONPATH','')}",
@@ -155,6 +178,10 @@ def timed_stage(tag, time_name, cmd, stdout_path=None):
     finally:
         if stdout_path:
             out.close()
+        if stderr_path:
+            err.close()
+    if rc and stderr_path:
+        log(f"{tag}: its log {stderr_path} ends: {open(stderr_path).read()[-2000:]}")
     assert rc == 0, f"{tag} failed (rc={rc})"
     from pantas_tpu_torch.eval.bench import parse_time_verbose
 
@@ -163,6 +190,55 @@ def timed_stage(tag, time_name, cmd, stdout_path=None):
         f"{tag}: wall {rec['wall_clock'][0]:.1f}s  "
         f"user {rec['user_time'][0]:.1f}s  rss {rec['max_mem'][0]/1e6:.2f} GB"
     )
+
+
+def stage_log(tag, stage):
+    """Where a device stage's stderr goes: ``<tag>.<stage>.log`` in the work
+    dir (a native stage's is dropped, as ever)."""
+    return str(WD / f"{tag}.{stage}.log") if ENGINE == "device" else None
+
+
+def check_device_augment(tag, gaf, gfa, dev_out):
+    """Hold one device augment to its log, then to ``augment --engine
+    native`` on the same inputs: the sorted kernel's scatter (its plain
+    version on the CPU), no fallback to the Python feed, kernel launches
+    equal to the batches on the card (0 on the CPU, where the kernels'
+    wrappers run their plain versions), and the two GFAs sha256-equal. The
+    record goes to ``<tag>.device.json``; any failure raises."""
+    from pantas_tpu_torch.bench import _sha256
+
+    text = open(stage_log(tag, "augment")).read()
+    want = "cuda-sorted" if DEVICE == "cuda" else "cpu-sorted-plain"
+    impls = re.findall(r"^\[device\] scatter impl: (\S+)", text, re.M)
+    hint = re.search(r"~(\d+) batches expected", text)
+    done = re.search(r"^\[device\] kernel launches: (\d+) \(batches: (\d+)\)", text, re.M)
+    launches, batches = (int(done[1]), int(done[2])) if done else (None, 0)
+    faults = []
+    if "native device feed unavailable" in text or "fallback" in text:
+        faults.append("it fell back")
+    if not impls or impls[-1] != want:
+        faults.append(f"its scatter is {impls}, not {want}")
+    if done is None or batches < 1 or launches != (batches if DEVICE == "cuda" else 0):
+        faults.append(f"kernel launches {launches} for {batches} batches")
+    if faults:
+        raise RuntimeError(f"{tag}: device augment on {DEVICE}: {'; '.join(faults)}")
+    log(f"{tag}: device augment: scatter {impls[-1]}, kernel launches: {launches} "
+        f"(batches: {batches}; ~{hint[1] if hint else '?'} batches expected)")
+    native = WD / f"{tag}.aug.native.gfa"
+    timed_stage(
+        f"augment(native) {tag}", f"augment-native.{tag}.time",
+        [PY, "-m", "pantas_tpu_torch", "augment", "--engine", "native", str(gaf), str(gfa)],
+        stdout_path=str(native),
+    )
+    record = {"tag": tag, "device": DEVICE, "scatter": impls[-1], "launches": launches,
+              "batches": batches, "batches_expected": int(hint[1]) if hint else None,
+              "sha256": _sha256(dev_out), "native_sha256": _sha256(native)}
+    native.unlink()
+    if record["sha256"] != record["native_sha256"]:
+        raise RuntimeError(f"{tag}: device GFA sha256 {record['sha256']} != native "
+                           f"engine's {record['native_sha256']}")
+    (WD / f"{tag}.device.json").write_text(json.dumps(record) + "\n")
+    log(f"{tag}: device GFA sha256 {record['sha256']} == native engine's")
 
 
 def main():
@@ -222,24 +298,28 @@ def main():
                 stdout_path=str(gaf) + ".tmp",
             )
             os.replace(str(gaf) + ".tmp", gaf)
-        ev = WD / f"{tag}.events.csv"
+        ev = WD / f"{tag}.events{STAGED}.csv"
         if MODE in ("staged", "both"):
-            aug = WD / f"{tag}.aug.gfa"
+            aug = WD / f"{tag}.aug{STAGED}.gfa"
             if not aug.exists():
                 timed_stage(
                     f"augment {tag}", f"augment.{tag}.time",
-                    [PY, "-m", "pantas_tpu_torch", "augment", "--engine", "native",
-                     str(gaf), str(gfa)],
-                    stdout_path=str(aug) + ".tmp",
+                    [PY, "-m", "pantas_tpu_torch", "augment", "--engine", ENGINE,
+                     *DEVICE_ARGS, str(gaf), str(gfa)],
+                    stdout_path=str(aug) + ".tmp", stderr_path=stage_log(tag, "augment"),
                 )
+                if ENGINE == "device":
+                    check_device_augment(tag, gaf, gfa, str(aug) + ".tmp")
                 os.replace(str(aug) + ".tmp", aug)
             if not ev.exists():
                 timed_stage(
                     f"call {tag}", f"call.{tag}.w3.time",
-                    [PY, "-m", "pantas_tpu_torch", "call", "--rca", "3",
+                    [PY, "-m", "pantas_tpu_torch", "call", *CALL_ENGINE, "--rca", "3",
                      str(aug), str(gtf)],
-                    stdout_path=str(ev) + ".tmp",
+                    stdout_path=str(ev) + ".tmp", stderr_path=stage_log(tag, "call"),
                 )
+                if ENGINE == "device":  # nothing in it is checked: kept only where it failed
+                    os.remove(stage_log(tag, "call"))
                 os.replace(str(ev) + ".tmp", ev)
         if MODE in ("fused", "both"):
             fev = WD / f"{tag}.events.fused.csv" if MODE == "both" else ev
@@ -264,7 +344,7 @@ def main():
             log(f"{tag}: fused == staged ({len(staged_rows) - 1} events)")
             # the comparison is done; drop the ~4 GB augmented GFA so a
             # 4-replicate both-mode run fits the disk
-            aug = WD / f"{tag}.aug.gfa"
+            aug = WD / f"{tag}.aug{STAGED}.gfa"
             if aug.exists():
                 aug.unlink()
 
@@ -272,8 +352,8 @@ def main():
     timed_stage(
         "quant", "quant.w3.time",
         [PY, "-m", "pantas_tpu_torch", "quant", "-a",
-         "--c1"] + [str(WD / f"c1_r{r}.events.csv") for r in range(1, REPS + 1)]
-        + ["--c2"] + [str(WD / f"c2_r{r}.events.csv") for r in range(1, REPS + 1)],
+         "--c1"] + [str(WD / f"c1_r{r}.events{STAGED}.csv") for r in range(1, REPS + 1)]
+        + ["--c2"] + [str(WD / f"c2_r{r}.events{STAGED}.csv") for r in range(1, REPS + 1)],
         stdout_path=str(quant),
     )
     timed_stage(

@@ -20,7 +20,7 @@ from fixtures_quant import write_quant_fixtures
 from test_torch_bench import write_example
 from test_torch_cli import REPLICATE_GTF
 from test_torch_scripts import NAMES as SCRIPT_NAMES
-from test_torch_scripts import run_script, script_argv
+from test_torch_scripts import FULLSCALE_DEVICE, run_script, script_argv
 
 FOREIGN_IMPORT = re.compile(r"^\s*(from|import)\s+(pantas_tpu(\.|\s|$)|jax(\.|\s|$))", re.M)
 
@@ -332,6 +332,16 @@ def test_script_loads_nothing_foreign(tmp_path, name):
     argv, cache = script_argv(name, tmp_path)
     env = {"CALL_SCALE_PLATFORM": "cpu"} if name == "bench_call_scale" else None
     _, report = run_script("pantas_tpu_torch", name, argv, tmp_path, cache=cache, env=env)
+    assert report == {"foreign": [], "scripts": []}
+
+
+def test_fullscale_device_engines_load_nothing_foreign(tmp_path):
+    """The full-scale experiment's staged layout on the device engines (on the
+    CPU) loads no module of ``pantas_tpu``, no ``jax`` and nothing under
+    ``scripts/``."""
+    argv, cache = script_argv("run_fullscale_experiment", tmp_path)
+    _, report = run_script("pantas_tpu_torch", "run_fullscale_experiment",
+                           argv + FULLSCALE_DEVICE, tmp_path, cache=cache)
     assert report == {"foreign": [], "scripts": []}
 
 

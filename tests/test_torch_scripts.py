@@ -9,6 +9,7 @@ import hashlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -49,8 +50,17 @@ CHANGED = {
     "run_sim_experiment": [(22, 22, 22, 22), (27, 27, 27, 27), (36, 36, 36, 36),
                            (46, 46, 46, 46), (48, 48, 48, 47), (50, 50, 49, 50),
                            (79, 79, 79, 79)],
-    "run_fullscale_experiment": [(7, 7, 7, 7), (23, 23, 23, 23), (36, 36, 36, 36),
-                                 (38, 38, 38, 37), (171, 171, 170, 170), (212, 212, 211, 211)],
+    # --engine and --device: the staged layout on the device engines, each
+    # device stage's log kept and checked, each device GFA held to the native
+    # engine's
+    "run_fullscale_experiment": [(7, 7, 7, 7), (23, 23, 23, 24), (29, 28, 30, 30), (31, 30, 33, 33),
+                                 (36, 36, 39, 39), (38, 38, 41, 40), (58, 57, 60, 69),
+                                 (59, 58, 71, 72), (60, 59, 74, 79), (136, 137, 156, 158),
+                                 (144, 143, 165, 165), (146, 146, 168, 168), (159, 158, 181, 184),
+                                 (169, 168, 195, 243), (171, 171, 246, 246), (212, 212, 287, 287),
+                                 (226, 226, 301, 301), (228, 228, 303, 303), (232, 234, 307, 309),
+                                 (236, 235, 311, 312), (240, 240, 317, 317), (242, 242, 319, 319),
+                                 (244, 243, 321, 322), (268, 268, 347, 347), (276, 277, 355, 356)],
 }
 NAMES = sorted(CHANGED)
 
@@ -86,16 +96,20 @@ print(json.dumps({
 """
 
 
-def run_script(pkg, name, argv, tmp, cache=None, env=None):
+def run_script(pkg, name, argv, tmp, cache=None, env=None, ok=True):
     """One run of ``name`` from ``pkg`` (``pantas_tpu`` runs ``scripts/``);
     ``tmp`` is its ``TMPDIR``. Returns the finished process and its report of
-    what it loaded."""
+    what it loaded; with ``ok`` False, the process alone, which must have
+    failed."""
     env = dict(os.environ, PYTHONPATH=str(REPO_ROOT), PYTHONHASHSEED="0", MPLBACKEND="Agg",
                TMPDIR=str(tmp), **(env or {}))
     proc = subprocess.run([sys.executable, "-c", RUNNER,
                            json.dumps([pkg, name, [str(a) for a in argv],
                                        str(cache) if cache else None])],
                           capture_output=True, text=True, cwd=REPO_ROOT, env=env, timeout=600)
+    if not ok:
+        assert proc.returncode != 0, proc.stderr[-3000:]
+        return proc
     assert proc.returncode == 0, proc.stderr[-3000:]
     return proc, json.loads(proc.stderr.strip().splitlines()[-1])
 
@@ -141,6 +155,28 @@ def script_argv(name: str, tmp: Path):
         return [tmp / "sim", "s3", "4", "10", "0.1", "1"], None
     # pairs replicates mbp
     return ["3000", "1", MBP, "--mode", "both", "--wd", tmp / "full"], cache
+
+
+# the full-scale experiment's staged layout on the device engines, on the CPU
+FULLSCALE_DEVICE = ["--engine", "device", "--device", "cpu"]
+
+# The JAX package's staged layout on its own device call engine, by hand on
+# the JAX script's reads (that script has no engine choice): augment --engine
+# native, call --engine device, quant, remap, into argv[2]. Its call engine
+# writes the host caller's rows in another order, and quant keeps the order.
+JAX_DEVICE_STAGED = """
+import sys
+from pantas_tpu import cli
+full, out, gfa, gtf = sys.argv[1:5]
+for tag in ("c1_r1", "c2_r1"):
+    aug = f"{out}/{tag}.aug.gfa"
+    assert cli.main(["augment", "--engine", "native", f"{full}/{tag}.gaf", gfa, "-o", aug]) == 0
+    assert cli.main(["call", "--engine", "device", "--rca", "3", aug, gtf,
+                     "-o", f"{out}/{tag}.events.csv"]) == 0
+assert cli.main(["quant", "-a", "--c1", f"{out}/c1_r1.events.csv", "--c2",
+                 f"{out}/c2_r1.events.csv", "-o", f"{out}/quant.csv"]) == 0
+assert cli.main(["remap", f"{out}/quant.csv", gtf, "-o", f"{out}/quant-remap.csv"]) == 0
+"""
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -273,27 +309,143 @@ def test_run_sim_experiment_genome_mode_through_both_packages(tmp_path):
     assert "### Sim accuracy (novel mode" in printed["pantas_tpu_torch"]
 
 
-def test_run_fullscale_experiment_both_modes_through_both_packages(tmp_path):
+@pytest.fixture(scope="module")
+def fullscale_jax(tmp_path_factory):
+    """The JAX package's ``--mode both`` run at 3,000 pairs on the 0.05 Mbp
+    graph (its staged layout on the native engine and the host caller); its
+    work dir."""
+    tmp = tmp_path_factory.mktemp("pantas_tpu")
+    argv, cache = script_argv("run_fullscale_experiment", tmp)
+    proc, _ = run_script("pantas_tpu", "run_fullscale_experiment", argv, tmp, cache=cache)
+    assert "fused == staged" in proc.stderr
+    return tmp / "full"
+
+
+def _stages(wd: Path) -> list:
+    return sorted(ln.split(",")[1] for ln in (wd / "bench.csv").read_text().splitlines()[1:])
+
+
+@pytest.fixture(scope="module")
+def fullscale_torch(tmp_path_factory):
+    """The port's ``--mode both`` run beside :func:`fullscale_jax`, on the
+    native engine; its directory (``full`` the work dir, ``cache`` the
+    graph) and its stderr."""
+    tmp = tmp_path_factory.mktemp("pantas_tpu_torch")
+    argv, cache = script_argv("run_fullscale_experiment", tmp)
+    proc, _ = run_script("pantas_tpu_torch", "run_fullscale_experiment", argv, tmp, cache=cache)
+    return tmp, proc.stderr
+
+
+def test_run_fullscale_experiment_both_modes_through_both_packages(fullscale_torch, fullscale_jax):
     """``--mode both`` (fused == staged is asserted by the script) at 3,000
     pairs on the 0.05 Mbp graph: the event rows of every replicate, the quant
     and the remapped quant byte-equal under one hash seed, and every stage
     timed in ``bench.csv``."""
-    wds = {}
-    for pkg in ("pantas_tpu", "pantas_tpu_torch"):
-        tmp = tmp_path / pkg
-        tmp.mkdir()
-        argv, cache = script_argv("run_fullscale_experiment", tmp)
-        proc, _ = run_script(pkg, "run_fullscale_experiment", argv, tmp, cache=cache)
-        assert "fused == staged" in proc.stderr
-        wds[pkg] = tmp / "full"
-    a, b = wds["pantas_tpu"], wds["pantas_tpu_torch"]
+    tmp, stderr = fullscale_torch
+    assert "fused == staged" in stderr
+    a, b = fullscale_jax, tmp / "full"
     for name in ["c1_r1.gaf", "c2_r1.gaf", "c1_r1.events.csv", "c2_r1.events.csv",
                  "c1_r1.events.fused.csv", "c2_r1.events.fused.csv", "quant.csv",
                  "quant-remap.csv", "reads/c1_r1_1.fq", "reads/c2_r1_2.fq"]:
         assert (a / name).read_bytes() == (b / name).read_bytes(), name
     assert (b / "quant-remap.csv").read_text().count("\n") > 1
-    stages = sorted(ln.split(",")[1] for ln in (b / "bench.csv").read_text().splitlines()[1:])
-    assert stages == sorted(["map", "augment", "call", "replicate"] * 2 + ["quant", "remap"])
+    assert _stages(b) == sorted(["map", "augment", "call", "replicate"] * 2 + ["quant", "remap"])
+    assert not list(b.glob("*.log")) and not list(b.glob("*.device.json"))
+
+
+def test_run_fullscale_experiment_device_engines_after_a_native_run_in_one_work_dir(
+        tmp_path, fullscale_torch):
+    """``--engine device`` in a copy of a native run's work dir reuses its
+    reads, GAFs and fused rows but none of its staged artifacts: each device
+    stage runs and is held (its augment log and record), its events go to
+    ``<tag>.events.device.csv`` beside the native ones, and fused == staged
+    compares those."""
+    tmp, _ = fullscale_torch
+    shutil.copytree(tmp / "full", tmp_path / "full")
+    native = {p.name: p.read_bytes() for p in (tmp_path / "full").glob("*.events*.csv")}
+    argv = ["3000", "1", MBP, "--mode", "both", "--wd", tmp_path / "full", *FULLSCALE_DEVICE]
+    proc, _ = run_script("pantas_tpu_torch", "run_fullscale_experiment", argv, tmp_path,
+                         cache=tmp / "cache")
+    b = tmp_path / "full"
+    assert "map c1_r1:" not in proc.stderr and "replicate(fused)" not in proc.stderr
+    for tag in ("c1_r1", "c2_r1"):
+        assert f"augment {tag}:" in proc.stderr and f"call {tag}:" in proc.stderr
+        assert f"{tag}: fused == staged" in proc.stderr
+        rec = json.loads((b / f"{tag}.device.json").read_text())
+        assert rec["sha256"] == rec["native_sha256"] and (b / f"{tag}.augment.log").exists()
+        ours = (b / f"{tag}.events.device.csv").read_text()
+        assert sorted(ours.splitlines()) == sorted(native[f"{tag}.events.csv"].decode().splitlines())
+    assert {p.name: p.read_bytes() for p in b.glob("*.events.csv")} == {
+        k: v for k, v in native.items() if k.endswith(".events.csv")}
+    assert _stages(b) == sorted(["map", "augment", "augment-native", "call", "replicate"] * 2
+                                + ["quant", "remap"])
+
+
+def test_run_fullscale_experiment_device_engines_on_the_cpu(tmp_path, fullscale_jax):
+    """``--mode both --engine device --device cpu`` at 3,000 pairs, under one
+    hash seed: the device-staged rows of every replicate, the quant and the
+    remapped quant equal as row multisets to the JAX package's native-staged
+    ones and byte-equal to the JAX package's staged layout on its device call
+    engine; fused == staged; every device GFA sha256-equal to the native
+    engine's; each augment's log with its scatter and its launches line (0
+    launches on the CPU, where the kernels' wrappers run their plain
+    versions)."""
+    argv, cache = script_argv("run_fullscale_experiment", tmp_path)
+    proc, report = run_script("pantas_tpu_torch", "run_fullscale_experiment",
+                              argv + FULLSCALE_DEVICE, tmp_path, cache=cache)
+    assert report == {"foreign": [], "scripts": []}
+    b, jax_device = tmp_path / "full", tmp_path / "jax_device"
+    jax_device.mkdir()
+    graph = fullscale_jax.parent / "cache" / f"stress{MBP}m"
+    env = dict(os.environ, PYTHONPATH=str(REPO_ROOT), PYTHONHASHSEED="0", JAX_PLATFORMS="cpu",
+               TMPDIR=str(tmp_path))
+    made = subprocess.run([sys.executable, "-c", JAX_DEVICE_STAGED, str(fullscale_jax),
+                           str(jax_device), str(graph / "out" / "pantranscriptome-annotated.gfa"),
+                           str(graph / "g.gtf")], capture_output=True, text=True, cwd=REPO_ROOT,
+                          env=env, timeout=300)
+    assert made.returncode == 0, made.stderr[-3000:]
+    assert (fullscale_jax / "c1_r1.gaf").read_bytes() == (b / "c1_r1.gaf").read_bytes()
+    for name in ["c1_r1.events.csv", "c2_r1.events.csv", "quant.csv", "quant-remap.csv"]:
+        ours = (b / name.replace(".events.", ".events.device.")).read_text()
+        assert sorted(ours.splitlines()) == sorted((fullscale_jax / name).read_text().splitlines())
+        assert ours == (jax_device / name).read_text(), name
+    assert (b / "quant-remap.csv").read_text().count("\n") > 1
+    for tag in ("c1_r1", "c2_r1"):
+        assert f"{tag}: fused == staged" in proc.stderr
+        rec = json.loads((b / f"{tag}.device.json").read_text())
+        assert rec["sha256"] == rec["native_sha256"] and len(rec["sha256"]) == 64
+        assert (rec["device"], rec["scatter"], rec["launches"]) == ("cpu", "cpu-sorted-plain", 0)
+        assert rec["batches"] >= 1 and rec["batches_expected"] >= 1
+        assert f"{tag}: device GFA sha256 {rec['sha256']} == native engine's" in proc.stderr
+        log = (b / f"{tag}.augment.log").read_text()
+        assert f"[device] kernel launches: 0 (batches: {rec['batches']})" in log.splitlines()
+        assert "[device] scatter impl: cpu-sorted-plain" in log
+        assert not (b / f"{tag}.call.log").exists()  # kept only where the call failed
+        assert not list(b.glob(f"{tag}.aug*.gfa*"))  # both GFAs deleted once compared
+    assert _stages(b) == sorted(["map", "augment", "augment-native", "call", "replicate"] * 2
+                                + ["quant", "remap"])
+
+
+def test_run_fullscale_experiment_device_stage_failure_exits_nonzero(tmp_path):
+    """A device stage that fails (``--device cuda`` with no card visible)
+    stops the script with a non-zero exit and the stage's log; nothing falls
+    back to the CPU and no GFA or event row is left."""
+    argv, cache = script_argv("run_fullscale_experiment", tmp_path)
+    proc = run_script("pantas_tpu_torch", "run_fullscale_experiment",
+                      argv + ["--engine", "device", "--device", "cuda"], tmp_path, cache=cache,
+                      env={"CUDA_VISIBLE_DEVICES": ""}, ok=False)
+    assert "augment c1_r1 failed" in proc.stderr and "c1_r1.augment.log" in proc.stderr
+    wd = tmp_path / "full"
+    assert (wd / "c1_r1.gaf").exists() and not list(wd.glob("*.aug*.gfa"))
+    assert not list(wd.glob("*.events*.csv")) and not (wd / "quant.csv").exists()
+
+
+def test_run_fullscale_experiment_device_engine_refuses_the_fused_mode(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO_ROOT), TMPDIR=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-m", "pantas_tpu_torch.scripts.run_fullscale_experiment",
+                           "--mode", "fused", "--engine", "device"], capture_output=True,
+                          text=True, cwd=REPO_ROOT, env=env, timeout=120)
+    assert proc.returncode == 2 and "use --mode staged or both" in proc.stderr
 
 
 @pytest.fixture
