@@ -28,7 +28,10 @@ Run from the root of a checkout, on a machine with a CUDA card:
    ``augment --engine device`` through the port's CLI with ``PANTAS_SCATTER``
    unset. Its GFA must be sha256-identical to the native host engine's, its
    log must show the CUDA sorted scatter and no fallback, and the sorted
-   kernel's launches counted in that run must equal its batches.
+   kernel's launches counted in that run must equal its batches. Beside it,
+   ``DeviceCoverage`` on the graph's tensors with no device named, as the
+   JAX one is built: its counts must lie on ``cuda:0`` and one seeded batch
+   must add as ``np.bincount`` does.
 4. The raw race (``python -m pantas_tpu_torch.coverage.bench_scatter``, the
    path that reaches kernel #2) at 2^25 slots x 2^20 indices: all three
    impls verify, and each kernel's launches counted in that run rise.
@@ -46,7 +49,11 @@ Run from the root of a checkout, on a machine with a CUDA card:
    (``EVALS``), none on the CPU. The 10 Mbp graph has no novel junctions, so
    the micro fixtures of ``tests/fixtures_call.py`` then run with ``--rca 0
    --novel`` on both engines: equal rows, and the novel ES, novel exonic SS
-   and CE finders evaluated on ``cuda``.
+   and CE finders evaluated on ``cuda``. Last, ``call_events_device(aug,
+   gtf, CallOptions(rca=0))`` in process with no device named, as the JAX
+   engine is called: ``EVALS`` must hold ``cuda`` entries only and the
+   sorted rows must equal the host engine's. One ``[defaults]`` line
+   reports it and phase 3's ``DeviceCoverage``.
 7. ``torch.profiler`` gives the device time of each kernel on the uniform
    and the one-slot batch at 2^25 and 2^28: the sorted kernel's by pass (the
    partition's count, scan and scatter, then the histogram), the direct
@@ -159,7 +166,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
     replicate's run on the card uses it: one device augment of condition 1's
     mapped GAF split by stage in this process (sha256 equal to the script's
     native one, launches = batches), and phase 9's ``real_batches`` on its slot
-    batches.
+    batches. It runs before phase 15, while phase 15's inputs are still being
+    made, so that it does not lengthen the script's wall.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -567,6 +575,28 @@ def main_path(label: str, wd: Path, gfa: Path, gaf: Path) -> tuple:
     return launches, ref_sha, dev_out
 
 
+def default_coverage(gfa: Path) -> dict:
+    """Beside phase 3: ``DeviceCoverage`` on the graph's tensors with no
+    device named. Its counts must lie on ``cuda:0``, and one seeded batch of
+    ``BATCH`` slots must add as ``np.bincount`` does."""
+    from pantas_tpu_torch.coverage import kernels
+    from pantas_tpu_torch.coverage.device import DeviceCoverage
+    from pantas_tpu_torch.graph.compiler import compile_gfa
+
+    tensors = compile_gfa(str(gfa))
+    dev = DeviceCoverage(tensors, log=io.StringIO())
+    if dev.counts.device != torch.device("cuda", 0):
+        raise RuntimeError(f"DeviceCoverage with no device holds its counts on {dev.counts.device}")
+    idx = np.random.default_rng(3).integers(-1, tensors.total_slots, size=BATCH, dtype=np.int32)
+    before = dict(kernels.LAUNCHES)
+    dev.add_slots(idx)
+    got = dev.result()
+    if not np.array_equal(got, np.bincount(idx[idx >= 0], minlength=tensors.total_slots)):
+        raise RuntimeError("DeviceCoverage with no device counted a seeded batch wrong")
+    return {"counts_device": str(dev.counts.device), "slots": tensors.total_slots,
+            "launches": {k: v - before[k] for k, v in kernels.LAUNCHES.items()}}
+
+
 def raw_race(label: str) -> dict:
     """``bench_scatter`` at 2^25 slots x 2^20 indices; return the launches
     counted in that run, by kernel."""
@@ -796,11 +826,13 @@ def _sorted_rows(path: Path) -> list:
     return rows
 
 
-def call_path(label: str, wd: Path, aug: Path) -> list:
+def call_path(label: str, wd: Path, aug: Path, coverage: dict) -> list:
     """Phase 6: events on the device-augmented 10 Mbp GFA, host engine then
     device engine through the port's CLI; then the micro fixtures with
-    ``--novel``, so that the novel finders run on the card too. Returns the
-    host engine's sorted rows on the 10 Mbp GFA."""
+    ``--novel``, so that the novel finders run on the card too; then the
+    library's call engine with no device named, reported with phase 3's
+    ``coverage`` (:func:`default_coverage`). Returns the host engine's sorted
+    rows on the 10 Mbp GFA."""
     from pantas_tpu_torch import cli
 
     gtf = wd / "g.gtf"
@@ -846,6 +878,28 @@ def call_path(label: str, wd: Path, aug: Path) -> list:
         raise RuntimeError(f"the micro fixtures evaluated no {sorted(missing)} on the card")
     print(f"[call] micro fixtures splice, cassette with --rca 0 --novel: rows equal to the "
           f"host's; candidates on cuda {novel} [{label}]", flush=True)
+
+    from pantas_tpu_torch.events import batched
+    from pantas_tpu_torch.events.caller import CallOptions
+
+    batched.EVALS.clear()
+    t0 = time.perf_counter()
+    rows = sorted(batched.call_events_device(str(aug), str(wd / "g.gtf"), CallOptions(rca=0),
+                                             log=io.StringIO()))
+    torch.cuda.synchronize()
+    lib_s = time.perf_counter() - t0
+    evals = dict(batched.EVALS)
+    if not evals or {dev for _, dev in evals} != {"cuda"}:
+        raise RuntimeError(f"call_events_device with no device evaluated on {evals}")
+    if rows != host:
+        raise RuntimeError(f"call_events_device with no device: rows differ from the host "
+                           f"caller's ({len(rows)} vs {len(host)} lines)")
+    print(f"[defaults] no device named: call_events_device(aug, gtf, CallOptions(rca=0)) "
+          f"{lib_s:.3f} s, candidates by (finder, device) "
+          f"{json.dumps({f'{f}:{d}': n for (f, d), n in sorted(evals.items())})}, rows equal to "
+          f"the host caller's ({len(events)} events); DeviceCoverage(compile_gfa(gfa)) counts "
+          f"on {coverage['counts_device']} ({coverage['slots']} slots), a seeded batch equal "
+          f"to np.bincount, launches {coverage['launches']} [{label}]", flush=True)
     return host
 
 
@@ -1227,7 +1281,7 @@ def exp_path(label: str, wd: Path, gfa: Path) -> None:
 
 
 # phase 15: the repo's 100 Mbp graph (ensure_graph's own shape at that size) and its reads,
-# made by a process of their own while phases 2-14 run (~10 min on 8 cores)
+# made by a process of their own while phases 2-14 and 17 run (~10 min on 8 cores)
 BIG_MBP = 100
 BIG_READS = 1_000_000
 BIG_BUCKET = 1 << 28
@@ -1308,7 +1362,7 @@ def big_path(label: str, inputs: tuple) -> dict:
     if bucket != BIG_BUCKET:
         raise RuntimeError(f"{tensors.total_slots} slots fall in a 2^{bucket.bit_length() - 1} "
                            f"bucket, not 2^{BIG_BUCKET.bit_length() - 1}")
-    print(f"[big] inputs, made while phases 2-14 ran: ensure_graph({BIG_MBP}) {graph_s:.1f} s, "
+    print(f"[big] inputs, made while phases 2-14 and 17 ran: ensure_graph({BIG_MBP}) {graph_s:.1f} s, "
           f"synth_gaf {BIG_READS} reads {reads_s:.1f} s, phase 15 waited {waited_s:.1f} s; GFA "
           f"{gfa.stat().st_size} B, {tensors.n_nodes} nodes, "
           f"{tensors.total_slots} count slots in a 2^{BIG_BUCKET.bit_length() - 1} bucket "
@@ -1588,9 +1642,10 @@ def _phases(label: str, kind: str, big_inputs: tuple) -> int:
     wd, gfa, gaf = _inputs()
     launches, ref_sha, aug = main_path(label, wd, gfa, gaf)
     try:
+        coverage = default_coverage(gfa)
         raw_launches = raw_race(label)
         race_path(label, wd, gfa, gaf, ref_sha)
-        call_rows = call_path(label, wd, aug)
+        call_rows = call_path(label, wd, aug, coverage)
         mesh_launches = mesh_path(label, wd, gfa, gaf, ref_sha)
         real = real_batches(label, gfa, gaf)
     finally:
@@ -1602,9 +1657,9 @@ def _phases(label: str, kind: str, big_inputs: tuple) -> int:
         exp_path(label, wd, gfa)
     finally:
         shutil.rmtree(wd / MAPPED_DIR, ignore_errors=True)
+    fullscale = fullscale_path(label)  # on the 10 Mbp graph while the 100 Mbp inputs are made
     big = big_path(label, big_inputs)
     bench = bench_path(label)
-    fullscale = fullscale_path(label)
     device_us = profile_split(25, label)
     profile_split(28, label)
     isolation()

@@ -1,7 +1,10 @@
 """Device selection and the card's label.
 
-The port never picks a device on its own: callers name one, and asking for
-CUDA where there is none is an error, not a quiet move to the CPU.
+The port never moves to the CPU on its own: a library entry point called
+with no device takes the first card (:func:`default_device`), as its JAX
+counterpart takes the default backend, and asking for CUDA where there is
+none is an error, not a quiet move to the CPU. The CPU is used only where a
+caller names it.
 """
 
 from __future__ import annotations
@@ -18,6 +21,24 @@ def device(name) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but torch.cuda.is_available() is False")
     return dev
+
+
+def default_device(name=None) -> torch.device:
+    """The device of a library entry point: ``name`` through :func:`device`,
+    or the first card when ``name`` is None. No card raises: a call that
+    names no device never runs on the CPU."""
+    if name is None and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no device named, so the first card (cuda:0) is used, but "
+            "torch.cuda.is_available() is False; name 'cpu' to run on the CPU"
+        )
+    return device("cuda:0" if name is None else name)
+
+
+def default_devices(names=None) -> list:
+    """:func:`default_device` for a device list: ``[cuda:0]`` when ``names``
+    is None, else each named device through :func:`device`."""
+    return [default_device()] if names is None else [device(d) for d in names]
 
 
 def devices(name, n: int = 1) -> list:

@@ -183,8 +183,8 @@ class DeviceCoverage:
                  mesh: Optional[mesh_lib.CoverageMesh] = None):
         self.t = tensors
         self.mesh = mesh
-        # results land on the mesh's first device
-        self.device = backend.device(mesh.devices[0] if mesh is not None else device)
+        # results land on the mesh's first device; no device and no mesh: the first card
+        self.device = backend.default_device(mesh.devices[0] if mesh is not None else device)
         self.log = sys.stderr if log is None else log
         self.batches = 0
         self._launches_at_start = sum(kernels.LAUNCHES.values())

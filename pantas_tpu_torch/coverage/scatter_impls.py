@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from pantas_tpu_torch import backend
 from pantas_tpu_torch.coverage import _build, kernels
 from pantas_tpu_torch.parallel.mesh import scatter_add_counts
 
@@ -158,12 +159,13 @@ def pick_scatter_endtoend(
     force_race: bool = False,
     batches_hint=None,
     *,
-    device,
+    device=None,
 ):
     """Pick the deployment scatter impl by racing END-TO-END steps.
 
     Measures the deployment shape (``n_slots`` counts, ``batch`` indices, on
-    the real batch ``sample``) on ``device``, with chained counts (each timed
+    the real batch ``sample``) on ``device`` (the first card when None,
+    :func:`.backend.default_device`), with chained counts (each timed
     step adds into the previous step's counts, as the stage does) and
     interleaved trials so drift hits both candidates. The stats (first-call
     seconds and step times) persist in :func:`_verdict_file` under
@@ -181,7 +183,7 @@ def pick_scatter_endtoend(
 
     Returns ``(name, step)`` with ``step`` from :data:`SCATTER_IMPLS`.
     """
-    device = torch.device(device)
+    device = backend.default_device(device)
     key = _backend_key(n_slots, batch, device) + ":v2"
     vf = _verdict_file()
     verdict = _load_verdict(vf)
@@ -293,10 +295,10 @@ def raw_race(n_slots: int, stream: int, device, reps: int = 3, seed: int = 0) ->
     return out
 
 
-def pick_scatter_impl(n_slots_hint: int = 1 << 20, stream_hint: int = 1 << 22, *, device):
-    """Race every impl's RAW rate at a synthetic shape; return ``(name,
-    step)`` of the fastest. Uncached: the answer depends on the device and
-    the hints."""
-    times = raw_race(n_slots_hint, stream_hint, device)
+def pick_scatter_impl(n_slots_hint: int = 1 << 20, stream_hint: int = 1 << 22, *, device=None):
+    """Race every impl's RAW rate at a synthetic shape on ``device`` (the
+    first card when None); return ``(name, step)`` of the fastest. Uncached:
+    the answer depends on the device and the hints."""
+    times = raw_race(n_slots_hint, stream_hint, backend.default_device(device))
     name = min(times, key=lambda k: times[k]["best_s"])
     return name, SCATTER_IMPLS[name]

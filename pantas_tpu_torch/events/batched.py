@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from pantas_tpu_torch import backend
 from pantas_tpu_torch.events.caller import (
     CallOptions,
     Jct,
@@ -110,14 +111,15 @@ def _to_device(mat: np.ndarray, device) -> torch.Tensor:
 def _eval_match(match, tables, index_arrays, devices=None) -> np.ndarray:
     """Evaluate ``match(*tables, *index_vectors)`` over the candidate axis.
 
-    ``devices`` (default: the CPU) holds one device, or N for ``--mesh N``:
+    ``devices`` (default: the first card, :func:`.backend.default_devices`;
+    the CPU only where named) holds one device, or N for ``--mesh N``:
     the tables are copied to every device, the candidate axis is split into
     N contiguous shards in order (``torch.tensor_split``; no padding is
     needed), and the hits come back in candidate order. Returns a host bool
     array, one entry per candidate. ``EVALS`` counts each device's
     candidates under ``match``'s name without its ``match_`` prefix.
     """
-    devices = [torch.device("cpu")] if devices is None else [torch.device(d) for d in devices]
+    devices = backend.default_devices(devices)
     finder = match.__name__.removeprefix("match_")
     index = [torch.from_numpy(np.asarray(v, dtype=np.int32)) for v in index_arrays]
     shards = zip(*(torch.tensor_split(v, len(devices)) for v in index))
@@ -272,6 +274,7 @@ def find_annotated_es(
     devices=None,
 ) -> Set[Tuple[Jct, Jct, Jct]]:
     """All (J, j1, j2) annotated-ES triples, evaluated on ``devices``."""
+    devices = backend.default_devices(devices)
     cands, tables, index = _annotated_es_candidates(graph, t2g, rca)
     if not cands:
         return set()
@@ -417,6 +420,7 @@ def find_annotated_ss(
     """Annotated A5/A3 hits: a ``Counter`` keyed by ``(etype, J, j_other)``
     whose counts are the host caller's row multiplicities (one row per
     exon-continuation neighbor ``n`` that fires the pattern)."""
+    devices = backend.default_devices(devices)
     keys, tables, index = _annotated_ss_candidates(graph, t2g, genestrand, rca)
     if not keys:
         return Counter()
@@ -475,6 +479,7 @@ def find_novel_es(
 ) -> Set[Tuple[Jct, Jct, Jct]]:
     """Novel-ES (J, j1, j2) triples: the flanks j1 = (J.head, n) and
     j2 = (q, J.tail) share a transcript."""
+    devices = backend.default_devices(devices)
     cands, tables, index = _novel_es_candidates(graph, t2g, rca)
     if not cands:
         return set()
@@ -552,6 +557,7 @@ def find_annotated_ir(
     """Annotated-IR pair per junction: the FIRST ``(n1, n2)`` of
     ``product(out(J.head), inc(J.tail))`` whose exons meet the junction's
     common gene-filtered exons, as the host caller's loop breaks on it."""
+    devices = backend.default_devices(devices)
     cands, tables, index = _annotated_ir_candidates(graph, t2g, rca)
     if not cands:
         return {}
@@ -664,6 +670,7 @@ def find_novel_ss_exonic(
 ) -> Set[Tuple[Jct, int, str]]:
     """Novel exonic A3/A5 hit keys ``(J, block, node)``: per candidate,
     ``exset(node) & spliced_exons[J, block] & labels(cap[J])`` is not empty."""
+    devices = backend.default_devices(devices)
     cands, tables, index = _novel_ss_exonic_candidates(graph, t2g, opts)
     if not cands:
         return set()
@@ -704,6 +711,7 @@ def find_novel_ce(
     """Novel-CE ``(exon_start, exon_end)`` pairs per annotated junction: the
     product pairs with ``j1.tail <= j2.head`` (lexicographic), as a rank
     compare over the sorted node ids."""
+    devices = backend.default_devices(devices)
     cands, tables, index = _novel_ce_candidates(graph, opts)
     if not cands:
         return {}
@@ -723,7 +731,9 @@ def call_events_device(
     graph: Optional[SplicingGraph] = None,
     devices: Optional[Sequence] = None,
 ):
-    """Device-batched call engine on ``devices`` (one, or N for ``--mesh``).
+    """Device-batched call engine on ``devices`` (one, or N for ``--mesh``;
+    the first card when None, :func:`.backend.default_devices`, resolved
+    before any file is read).
 
     The six finders above evaluate on the devices; the remaining irregular
     pieces (intron subpath walks, intronic-SS frontier search, novel IR)
@@ -742,6 +752,7 @@ def call_events_device(
     )
     from pantas_tpu_torch.io.gtf import parse_transcript_maps
 
+    devices = backend.default_devices(devices)
     log = sys.stderr if log is None else log
     if graph is None:
         graph = SplicingGraph.from_gfa(gfa_path)

@@ -79,7 +79,9 @@ def test_a_verdict_of_other_kernel_sources_is_not_used(cache, monkeypatch):
     """On CUDA the key holds the kernel library's content hash: a verdict
     cached under the same hash decides without a race; one cached under
     another hash (an older kernel's) is not used, and the new race is cached
-    beside it. The race itself is replaced, so this runs without a card."""
+    beside it. The race itself is replaced and the card is stubbed, so this
+    runs without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None: "Card")
     monkeypatch.setattr(si._build, "library_path",
                         lambda: Path("build/kernels/libpantas_kernels_00000000000000aa.so"))
