@@ -168,6 +168,18 @@ Run from the root of a checkout, on a machine with a CUDA card:
     native one, launches = batches), and phase 9's ``real_batches`` on its slot
     batches. It runs before phase 15, while phase 15's inputs are still being
     made, so that it does not lengthen the script's wall.
+18. Compressed stage files on phase 3's inputs (after phase 14, before phases
+    17 and 15): ``augment --engine device`` through the port's CLI with ``-o
+    *.zst`` (the system's libzstd through ``io/zstd_ctypes.py``), then ``-o
+    *.gz`` with the ``gzip`` binary taken off ``PATH`` (both in-process
+    compressors are fed by the pipe of ``io/xopen.py::open_stage_output``).
+    Each file must decompress to phase 3's sha256 and be smaller than it (the
+    ``.zst`` also through libzstd's one-shot ``ZSTD_decompress``, none of the
+    port's streaming reader), and kernel
+    #1's launches must equal the batches. Then ``augment --engine device-py``
+    on the first ``COMPRESSED_LINES`` lines of the GAF, plain and as a
+    ``.zst``: the two GFAs must be byte-equal, launches equal to batches. One
+    ``[compressed]`` line gives the walls beside phase 3's plain wall.
 
 Every failure raises, so the exit code is non-zero and no result is printed.
 The second-to-last line is the kernels' JSON record; the last line is
@@ -547,7 +559,8 @@ def _decision(log: str) -> str:
 def main_path(label: str, wd: Path, gfa: Path, gaf: Path) -> tuple:
     """Run the device augment with ``PANTAS_SCATTER`` unset; return (its
     sorted-kernel launches, the native engine's sha256, the device GFA,
-    which the caller deletes after phase 6 has called events on it)."""
+    which the caller deletes after phase 6 has called events on it, its
+    wall in seconds)."""
     from pantas_tpu_torch import cli
 
     ref_out, dev_out = wd / "smoke_native.gfa", wd / "smoke_device.gfa"
@@ -572,7 +585,125 @@ def main_path(label: str, wd: Path, gfa: Path, gaf: Path) -> tuple:
         flush=True,
     )
     ref_out.unlink()
-    return launches, ref_sha, dev_out
+    return launches, ref_sha, dev_out, device_s
+
+
+COMPRESSED_LINES = 20_000
+
+
+def _decompressed_sha256(path: Path) -> tuple:
+    """(sha256, bytes) of the decompressed content of ``path``."""
+    from pantas_tpu_torch.io.xopen import xopen
+
+    h, n = hashlib.sha256(), 0
+    with xopen(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 22), b""):
+            h.update(chunk)
+            n += len(chunk)
+    return h.hexdigest(), n
+
+
+def _without_gzip() -> str:
+    """``PATH`` with every directory that holds a ``gzip`` left out."""
+    dirs = os.environ.get("PATH", "").split(os.pathsep)
+    return os.pathsep.join(d for d in dirs if d and not os.access(os.path.join(d, "gzip"), os.X_OK))
+
+
+def _one_shot_sha256(path: Path, size: int) -> str:
+    """sha256 of ``path`` decoded by libzstd's one-shot ``ZSTD_decompress``
+    into a buffer of the plain file's ``size``: a decoder beside the port's
+    streaming reader (``io/zstd_ctypes.py``), which wrote the file."""
+    import ctypes
+    import ctypes.util
+
+    lib = ctypes.CDLL(ctypes.util.find_library("zstd") or "libzstd.so.1")
+    lib.ZSTD_decompress.restype = ctypes.c_size_t
+    lib.ZSTD_decompress.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p,
+                                    ctypes.c_size_t]
+    lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+    data = path.read_bytes()
+    dst = ctypes.create_string_buffer(size)
+    n = lib.ZSTD_decompress(dst, size, data, len(data))
+    if lib.ZSTD_isError(n) or n != size:
+        raise RuntimeError(f"ZSTD_decompress of {path.name}: {n} of {size} bytes")
+    return hashlib.sha256(memoryview(dst)[:n]).hexdigest()
+
+
+def _kernel1_checked(counted: dict, batches: int, what: str) -> int:
+    launches = counted["sorted_coverage_scatter_add"]
+    if not (launches == batches >= 1) or counted["coverage_scatter_add"]:
+        raise RuntimeError(f"{what}: {counted} kernel launches for {batches} batches")
+    return launches
+
+
+def compressed_path(label: str, wd: Path, gfa: Path, gaf: Path, ref_sha: str,
+                    plain_s: float) -> int:
+    """Phase 18: compressed outputs of the device engine, and a ``.zst`` GAF
+    read by ``device-py``. Returns kernel #1's launches over its four runs."""
+    from pantas_tpu_torch import cli
+    from pantas_tpu_torch.io.xopen import xopen
+
+    t0 = time.perf_counter()
+    total, walls = 0, {}
+    for suffix, env in (("zst", {}), ("gz", {"PATH": _without_gzip()})):
+        out = wd / f"smoke_compressed.gfa.{suffix}"
+
+        def run(out, hidden=bool(env)):
+            if hidden and shutil.which("gzip"):
+                raise RuntimeError("gzip is still on PATH")
+            return cli.main(["augment", "--engine", "device", str(gaf), str(gfa), "-o", str(out)])
+
+        try:
+            log, counted, seconds, batches = _device_augment(gaf, gfa, out, env, run)
+            if _decision(log) != "cuda-sorted":
+                raise RuntimeError(f"-o *.{suffix}: the augment did not run the CUDA scatter")
+            total += _kernel1_checked(counted, batches, f"-o *.{suffix}")
+            sha, plain_bytes = _decompressed_sha256(out)
+            size = out.stat().st_size
+            if suffix == "zst" and _one_shot_sha256(out, plain_bytes) != sha:
+                raise RuntimeError("-o *.zst: the one-shot decode differs from the reader's")
+        finally:
+            out.unlink(missing_ok=True)
+        if sha != ref_sha or not size < plain_bytes:
+            raise RuntimeError(f"-o *.{suffix}: decompressed sha256 {sha} ({plain_bytes} B, "
+                               f"{size} B compressed), phase 3's {ref_sha}")
+        walls[suffix] = (seconds, size, plain_bytes, batches)
+
+    head, packed = wd / "smoke_head.gaf", wd / "smoke_head.gaf.zst"
+    outs = {name: wd / f"smoke_head_{name}.gfa" for name in ("plain", "zst")}
+    try:
+        with open(gaf, "rb") as src, open(head, "wb") as dst, xopen(packed, "wb") as z:
+            for _, line in zip(range(COMPRESSED_LINES), src):
+                dst.write(line)
+                z.write(line)
+        for name, source in (("plain", head), ("zst", packed)):
+            def run(out, source=source):
+                return cli.main(["augment", "--engine", "device-py", str(source), str(gfa),
+                                 "-o", str(out)])
+
+            log, counted, seconds, batches = _device_augment(source, gfa, outs[name], {}, run)
+            total += _kernel1_checked(counted, batches, f"device-py on a {name} GAF")
+            walls[f"py-{name}"] = (seconds, batches)
+        py_sha = _sha256(outs["plain"])
+        if _sha256(outs["zst"]) != py_sha:
+            raise RuntimeError("device-py on the .zst GAF differs from the plain run")
+    finally:
+        for path in (head, packed, *outs.values()):
+            path.unlink(missing_ok=True)
+    zst, gz = walls["zst"], walls["gz"]
+    print(
+        f"[compressed] augment --engine device, 10 Mbp, {N_READS} reads: -o *.zst by "
+        f"libzstd {zst[0]:.3f} s ({zst[1]} B), -o *.gz without the gzip binary "
+        f"{gz[0]:.3f} s ({gz[1]} B), beside phase 3's plain {plain_s:.3f} s ({zst[2]} B); both "
+        f"decompress to sha256 {ref_sha} (the .zst by the port's reader and by "
+        f"ZSTD_decompress), kernel #1 "
+        f"launches = batches ({zst[3]}, {gz[3]}); device-py on the first {COMPRESSED_LINES} "
+        f"lines: .zst GAF {walls['py-zst'][0]:.3f} s == plain GAF {walls['py-plain'][0]:.3f} s "
+        f"byte for byte (sha256 {py_sha}, {walls['py-zst'][1]} batches); the phase "
+        f"{time.perf_counter() - t0:.1f} s [{label}]",
+        flush=True,
+    )
+    return total
 
 
 def default_coverage(gfa: Path) -> dict:
@@ -1530,6 +1661,149 @@ def replicate_kernels(label: str, wd: Path, gfa: Path) -> dict:
     return {"run": rec, "idle": idle, "real": real}
 
 
+def compressed_big(label: str) -> dict:
+    """Not a phase: after a run of this script, whose phase 15 leaves the
+    100 Mbp graph and its 1M reads under ``.bench/stress100m``, ``augment
+    --engine device`` on them through the port's CLI with a plain ``-o`` and
+    with ``-o *.zst``. The decompressed sha256 (by the port's reader and by
+    libzstd's one-shot ``ZSTD_decompress``) must equal the plain one,
+    kernel #1's launches the batches, and the GFA must have been written by
+    the native emitter on a pipe (``NativeCoverage.emit`` once, on a FIFO;
+    the Python emitter never). Run it as ``python3 -c "import chip_smoke as s;
+    from pantas_tpu_torch import backend; s.compressed_big(backend.card_label())"``."""
+    import stat
+
+    from pantas_tpu_torch import cli
+    from pantas_tpu_torch.coverage import device as device_mod
+    from pantas_tpu_torch.native import gafcov
+
+    wd = REPO / ".bench" / f"stress{BIG_MBP}m"
+    gfa, gaf = wd / "out" / "pantranscriptome-annotated.gfa", wd / f"reads_{BIG_READS}.gaf"
+    if not (gfa.exists() and gaf.exists()):
+        raise RuntimeError(f"{gfa} or {gaf} is missing: run chip_smoke.py first")
+    emits, rec = [], {}
+    real_emit, python_emit = gafcov.NativeCoverage.emit, device_mod.emit_augmented_gfa
+
+    def emit(self, gfa_in, out_fd):
+        emits.append(stat.S_ISFIFO(os.fstat(out_fd).st_mode))
+        return real_emit(self, gfa_in, out_fd)
+
+    def no_python_emission(*a, **k):
+        raise RuntimeError("the Python emitter ran")
+
+    gafcov.NativeCoverage.emit, device_mod.emit_augmented_gfa = emit, no_python_emission
+    try:
+        for name in ("plain", "zst"):
+            out = wd / ("smoke_big.gfa" if name == "plain" else "smoke_big.gfa.zst")
+
+            def run(out):
+                return cli.main(["augment", "--engine", "device", str(gaf), str(gfa),
+                                 "-o", str(out)])
+
+            del emits[:]
+            try:
+                log, counted, seconds, batches = _device_augment(gaf, gfa, out, {}, run)
+                launches = _kernel1_checked(counted, batches, f"100 Mbp -o {out.name}")
+                t0 = time.perf_counter()
+                sha, plain_bytes = _decompressed_sha256(out)
+                rec[name] = {"s": seconds, "launches": launches, "batches": batches,
+                             "bytes": out.stat().st_size, "sha256": sha,
+                             "plain_bytes": plain_bytes,
+                             "hash_s": time.perf_counter() - t0, "native_emits": list(emits)}
+                if name == "zst" and _one_shot_sha256(out, plain_bytes) != sha:
+                    raise RuntimeError("100 Mbp -o *.zst: the one-shot decode differs")
+            finally:
+                out.unlink(missing_ok=True)
+            if _decision(log) != "cuda-sorted" or emits != [name == "zst"]:
+                raise RuntimeError(f"100 Mbp -o {out.name}: {_decision(log)}, native emits "
+                                   f"on a FIFO {emits}")
+    finally:
+        gafcov.NativeCoverage.emit, device_mod.emit_augmented_gfa = real_emit, python_emit
+    plain, zst = rec["plain"], rec["zst"]
+    if zst["sha256"] != plain["sha256"]:
+        raise RuntimeError(f"100 Mbp: -o *.zst {zst}, plain {plain}")
+    print(f"[compressed-100m] augment --engine device, {BIG_MBP} Mbp graph, {BIG_READS} reads: "
+          f"plain -o {plain['s']:.3f} s ({plain['bytes']} B), -o *.zst by libzstd "
+          f"{zst['s']:.3f} s "
+          f"({zst['bytes']} B, decompressed and hashed in {zst['hash_s']:.3f} s; the same sha256 "
+          f"by ZSTD_decompress), both sha256 "
+          f"{plain['sha256']}; kernel #1 launches = batches ({plain['batches']}, "
+          f"{zst['batches']}); the native emitter wrote the .zst through a pipe [{label}]",
+          flush=True)
+    return rec
+
+
+def python_sink_walls(label: str, repeats: int = 2) -> dict:
+    """Not a phase: what the pipe costs an output that Python writes.
+    ``augment --engine device-py`` on the first ``COMPRESSED_LINES`` lines of
+    the 10 Mbp GAF (``_inputs()``), whose Python emitter writes the whole
+    10 Mbp GFA, with ``-o *.zst`` and with ``-o *.gz`` (``gzip`` off
+    ``PATH``), each through ``open_stage_output``'s pipe and drain thread and
+    through the compressor straight (the handle ``xopen(path, "wt")``, as
+    ``open_stage_output`` gave before the pipe), in the order pipe, straight,
+    straight, pipe, ``repeats`` times; a plain ``-o`` first. Every output
+    must decompress to the plain run's sha256, launches = batches. Run it as
+    ``python3 -c "import chip_smoke as s; from pantas_tpu_torch import
+    backend; s.python_sink_walls(backend.card_label())"``."""
+    from pantas_tpu_torch import cli
+    from pantas_tpu_torch.io import xopen as xopen_mod
+
+    wd, gfa, gaf = _inputs()
+    head = wd / "sink_head.gaf"
+    with open(gaf, "rb") as src, open(head, "wb") as dst:
+        for _, line in zip(range(COMPRESSED_LINES), src):
+            dst.write(line)
+
+    @contextlib.contextmanager
+    def straight(path):
+        with xopen_mod.xopen(path, "wt") as fh:
+            yield fh
+
+    piped = xopen_mod.open_stage_output
+    walls = {}
+
+    def run_one(out, route, env):
+        def run(out):
+            return cli.main(["augment", "--engine", "device-py", str(head), str(gfa),
+                             "-o", str(out)])
+
+        xopen_mod.open_stage_output = straight if route == "straight" else piped
+        try:
+            _, counted, seconds, batches = _device_augment(head, gfa, out, env, run)
+        finally:
+            xopen_mod.open_stage_output = piped
+        _kernel1_checked(counted, batches, f"device-py -o {out.name} ({route})")
+        return seconds
+
+    try:
+        plain = wd / "sink_plain.gfa"
+        walls["plain"] = [run_one(plain, "pipe", {})]
+        ref_sha, size = _sha256(plain), plain.stat().st_size
+        plain.unlink()
+        for suffix, env in (("zst", {}), ("gz", {"PATH": _without_gzip()})):
+            out = wd / f"sink_out.gfa.{suffix}"
+            for route in ("pipe", "straight", "straight", "pipe") * repeats:
+                try:
+                    seconds = run_one(out, route, env)
+                    sha, n = _decompressed_sha256(out)
+                    packed = out.stat().st_size
+                finally:
+                    out.unlink(missing_ok=True)
+                if (sha, n) != (ref_sha, size):
+                    raise RuntimeError(f"device-py -o *.{suffix} ({route}): {sha}, {n} B")
+                walls.setdefault(f"{suffix}-{route}", []).append(seconds)
+    finally:
+        head.unlink(missing_ok=True)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"[sink] augment --engine device-py, the first {COMPRESSED_LINES} lines, 10 Mbp GFA "
+          f"({size} B, Python emitter): plain -o {med['plain']:.3f} s; -o *.zst pipe "
+          f"{med['zst-pipe']:.3f} s vs straight {med['zst-straight']:.3f} s; -o *.gz without "
+          f"gzip pipe {med['gz-pipe']:.3f} s vs straight {med['gz-straight']:.3f} s (medians of "
+          f"{2 * repeats}; runs {json.dumps({k: [round(x, 3) for x in v] for k, v in walls.items()})}"
+          f"); every output sha256 {ref_sha} [{label}]", flush=True)
+    return walls
+
+
 def fullscale_path(label: str) -> dict:
     """Phase 17: ``run_fullscale_experiment --mode both --engine device`` at
     ``FULLSCALE_ARGS`` as a subprocess, checked by its exit code, its log and
@@ -1634,13 +1908,13 @@ def main() -> int:
 
 
 def _phases(label: str, kind: str, big_inputs: tuple) -> int:
-    """Phases 2-17, then the kernels' record and the last line."""
+    """Phases 2-18, then the kernels' record and the last line."""
     shapes = [kernel_vs_plain(25, 25, label), kernel_vs_plain(28, 28, label)]
     direct = [direct_vs_plain(25, 25, label), direct_vs_plain(28, 28, label)]
     uniform = [uniform_vs_plain(25, label), uniform_vs_plain(28, label)]
     one_slot = [one_slot_vs_plain(25, label), one_slot_vs_plain(28, label)]
     wd, gfa, gaf = _inputs()
-    launches, ref_sha, aug = main_path(label, wd, gfa, gaf)
+    launches, ref_sha, aug, plain_s = main_path(label, wd, gfa, gaf)
     try:
         coverage = default_coverage(gfa)
         raw_launches = raw_race(label)
@@ -1657,6 +1931,7 @@ def _phases(label: str, kind: str, big_inputs: tuple) -> int:
         exp_path(label, wd, gfa)
     finally:
         shutil.rmtree(wd / MAPPED_DIR, ignore_errors=True)
+    compressed_launches = compressed_path(label, wd, gfa, gaf, ref_sha, plain_s)
     fullscale = fullscale_path(label)  # on the 10 Mbp graph while the 100 Mbp inputs are made
     big = big_path(label, big_inputs)
     bench = bench_path(label)
@@ -1673,6 +1948,7 @@ def _phases(label: str, kind: str, big_inputs: tuple) -> int:
         "mesh_launches": mesh_launches,  # phase 8's four runs together
         "dist_launches": dist_launches,  # phase 11's ranks, both runs together
         "mapped_launches": mapped_launches,  # phase 13's two conditions together
+        "compressed_launches": compressed_launches,  # phase 18's four runs together
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": shapes[0]["ms"],  # the main path's 2^25 bucket
         "plain_ms": shapes[0]["plain_ms"],

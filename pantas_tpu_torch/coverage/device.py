@@ -466,6 +466,23 @@ def _load_checkpoint(path: str, enc: SlotEncoder, dev: DeviceCoverage) -> int:
     return int(state["offset"])
 
 
+def _skip_to(fh, offset: int) -> None:
+    """Move the GAF reader to the decompressed ``offset`` of a checkpoint:
+    a seek where the stream can seek, else ``offset`` bytes read and
+    dropped (the zstd reader cannot seek; its ``tell()`` is the
+    decompressed position the checkpoint saved). Past the end, the reader
+    is left at its end, as a seek there leaves a plain file."""
+    if fh.seekable():
+        fh.seek(offset)
+        return
+    left = offset
+    while left:
+        chunk = fh.read(min(left, 1 << 20))
+        if not chunk:
+            return
+        left -= len(chunk)
+
+
 def _save_native_checkpoint(path, dev, eng, tensors, offset, base_sidecars, flat=None):
     """Atomic checkpoint of the native-fed stage: the device counts (length
     ``total_slots``), the GAF byte offset of the next unparsed record, and
@@ -669,7 +686,8 @@ def augment_gfa_device(
     print("Augmentation by GAF alignments (device scatter-add)", file=log)
     flushes = 0
     with xopen(gaf_path, "rb") as fh:
-        fh.seek(start_offset)
+        if start_offset > 0:
+            _skip_to(fh, start_offset)
         pos = start_offset
         while True:
             raw = fh.readline()

@@ -12,7 +12,8 @@ wire format is unchanged, only the at-rest encoding differs.
 Two consumption modes:
 
 * :func:`xopen` — streaming text/binary handle for line-oriented Python
-  parsers (gzip via zlib, zstd via the ``zstandard`` module).
+  parsers (gzip via zlib, zstd via the system's libzstd:
+  :mod:`~pantas_tpu_torch.io.zstd_ctypes`).
 * :func:`materialized` — context manager yielding a PLAIN file path for
   the native mmap consumers (``gafcov``/``gfaload`` map the file and
   parse in place); compressed inputs are inflated once into ``/dev/shm``
@@ -27,18 +28,18 @@ while the bytes written drop ~5x.
 from __future__ import annotations
 
 import contextlib
+import fcntl
 import gzip
 import io
 import os
 import shutil
 import tempfile
+import threading
+
+from pantas_tpu_torch.io.zstd_ctypes import open_zst
 
 GZ_WRITE_LEVEL = 1
-
-try:  # optional: present in this image, but stub-gated per the rules
-    import zstandard as _zstd
-except Exception:  # pragma: no cover - environment without zstandard
-    _zstd = None
+DRAIN_CHUNK = 1 << 20  # bytes the drain thread moves from the pipe at a time
 
 
 def is_compressed(path) -> bool:
@@ -58,23 +59,7 @@ def xopen(path, mode: str = "rt", **kw):
             kw.setdefault("compresslevel", GZ_WRITE_LEVEL)
         return gzip.open(p, mode, **kw)
     if p.endswith(".zst"):
-        if _zstd is None:
-            raise RuntimeError(
-                "zstandard module unavailable; use .gz or plain files"
-            )
-        binary = "b" in mode
-        if "r" in mode:
-            fh = open(p, "rb")
-            # BufferedReader supplies readline()/iteration — the bare
-            # ZstdDecompressionReader raises UnsupportedOperation on
-            # line-oriented binary consumers
-            stream = io.BufferedReader(
-                _zstd.ZstdDecompressor().stream_reader(fh)
-            )
-            return stream if binary else io.TextIOWrapper(stream)
-        fh = open(p, "wb")
-        stream = _zstd.ZstdCompressor().stream_writer(fh)
-        return stream if binary else io.TextIOWrapper(stream)
+        return open_zst(p, mode)
     return open(p, mode, **kw)
 
 
@@ -101,6 +86,67 @@ def _scratch_dir() -> str:
     return tempfile.gettempdir()
 
 
+def _drain(read_fd: int, path: str, state: dict) -> None:
+    """Copy the pipe into the compressor of ``path`` until the write end
+    closes, then set ``state["done"]``. On an error the read end is closed
+    at once, so a writer gets ``EPIPE`` instead of blocking on a full pipe;
+    the error is kept in ``state["error"]`` for the caller."""
+    try:
+        with os.fdopen(read_fd, "rb", buffering=0) as src, xopen(path, "wb") as dst:
+            while True:
+                chunk = src.read(DRAIN_CHUNK)
+                if not chunk:
+                    break
+                dst.write(chunk)
+        state["done"] = True
+    except Exception as e:  # reported by the caller after join()
+        state["error"] = e
+
+
+@contextlib.contextmanager
+def _drained_pipe(path: str):
+    """A text handle on the write end of a pipe whose read end a thread
+    copies into ``xopen(path, "wb")``.
+
+    The native emitters are called through ``ctypes.CDLL``, which releases
+    the GIL for the call, so the drain thread runs while an emitter blocks
+    on a full pipe: no deadlock. On a normal exit the handle is flushed and
+    closed and the thread joined; a compressor error (a full disk, say)
+    raises here, so the stage cannot exit 0 with a truncated file. When the
+    body raises, the write end is closed, the thread joined, and the body's
+    own exception goes on.
+    """
+    read_fd, write_fd = os.pipe()
+    with contextlib.suppress(OSError):  # a larger pipe: fewer hand-offs to the drain thread
+        fcntl.fcntl(write_fd, fcntl.F_SETPIPE_SZ, DRAIN_CHUNK)
+    state = {"done": False, "error": None}
+    thread = threading.Thread(target=_drain, args=(read_fd, path, state),
+                              name=f"stage-output-drain:{os.path.basename(path)}", daemon=True)
+    thread.start()
+    out = open(write_fd, "w", buffering=DRAIN_CHUNK)
+    try:
+        yield out
+    except BaseException as e:
+        with contextlib.suppress(OSError):
+            out.close()
+        thread.join()
+        if state["error"] is not None:  # the body's EPIPE or short write had this cause
+            e.add_note(f"compressing {path} failed: {state['error']!r}")
+        raise
+    close_error = None
+    try:
+        out.close()  # flushes; the write end closes even when the flush fails
+    except OSError as e:  # EPIPE: the drain thread failed and closed its end
+        close_error = e
+    thread.join()
+    if state["error"] is not None:
+        raise OSError(f"compressing {path} failed: {state['error']!r}") from state["error"]
+    if close_error is not None:
+        raise close_error
+    if not state["done"]:
+        raise OSError(f"compressing {path} stopped before the end of the output")
+
+
 @contextlib.contextmanager
 def open_stage_output(path):
     """Open a stage OUTPUT for text writing, compressed when the name
@@ -110,9 +156,11 @@ def open_stage_output(path):
     the yielded handle then has a real ``fileno()`` (the pipe), so the
     native emitters keep their zero-copy fd fast path and compression
     runs concurrently in the other process — on a 2-core box the emitter
-    and the compressor overlap instead of serializing. Falls back to the
-    in-process zlib/zstd streams otherwise (the native emitters detect
-    the missing ``fileno`` and take the Python emission path).
+    and the compressor overlap instead of serializing. ``.zst``, and
+    ``.gz`` without the binary, go through :func:`_drained_pipe`: the
+    handle is again a pipe, which a thread drains into the in-process
+    compressor. The native emitters write plain bytes to ``fileno()``, so
+    it is never the compressed file's own descriptor.
     """
     p = str(path)
     if p.endswith(".gz") and shutil.which("gzip"):
@@ -143,7 +191,7 @@ def open_stage_output(path):
                 raise
         return
     if is_compressed(p):
-        with xopen(p, "wt") as fh:
+        with _drained_pipe(p) as fh:
             yield fh
         return
     with open(p, "w") as fh:

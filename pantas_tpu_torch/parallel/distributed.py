@@ -282,7 +282,7 @@ def augment_gfa_distributed(
     )
     from pantas_tpu_torch.coverage.host import emit_augmented_gfa
     from pantas_tpu_torch.graph.compiler import compile_gfa
-    from pantas_tpu_torch.io.xopen import is_compressed
+    from pantas_tpu_torch.io.xopen import is_compressed, open_stage_output
 
     log = sys.stderr if log is None else log
     if is_compressed(gaf_path):
@@ -386,7 +386,8 @@ def augment_gfa_distributed(
             merged = _merge_sidecars(tensors, sidecars)
             counts = counts_from_device(tensors, merged, global_counts)
             print(f"Rejected alignments: {counts.rejected}", file=log)
-            with open(out_path, "w") as out:
+            # -o *.zst / *.gz compress, as the single-process stages' do
+            with open_stage_output(out_path) as out:
                 emit_augmented_gfa(gfa_path, counts, out)
             for i in range(n_procs):
                 os.remove(os.path.join(workdir, f".augshard.{i}.pkl"))

@@ -309,17 +309,26 @@ def test_checkpoint_payload_holds_no_package_class(tmp_path, feed, mesh):
     assert modules and all(m.split(".")[0] in ("numpy", "builtins") for m in modules), modules
 
 
-# The mapper, the host tools around it, the experiment module and the
-# comparison and figure layer: twenty files copied with only the package name
-# changed. Eight lines of the originals are reworded in the port (docstrings
-# that name a directory outside the repo, and one parameter's name): each is
-# given here by its line number, with the port's text.
+# The mapper, the host tools around it, the experiment module, the
+# comparison and figure layer and the compressed-file layer: twenty-one files
+# copied with only the package name changed. Eight lines of the originals are
+# reworded in the port (docstrings that name a directory outside the repo, and
+# one parameter's name): each is given here by its line number, with the
+# port's text. ``io/xopen.py`` differs in hunks ``(a, b, c, d)``: the
+# original's lines a..b are the port's lines c..d. The port reads and writes
+# ``.zst`` through the system's libzstd (``io/zstd_ctypes.py``) where the
+# original needs the ``zstandard`` module, and its ``open_stage_output``
+# drains a pipe into the in-process compressor, where the original hands the
+# compressed file's own descriptor to the native emitters.
 COPIED_FILES = {
     "mapping/__init__.py": {}, "mapping/mapper.py": {}, "mapping/prefilter.py": {},
     "eval/exps_helpers.py": {}, "build/legacy.py": {}, "coverage/gamp.py": {},
     "eval/simulate.py": {}, "eval/compare.py": {}, "eval/converters.py": {},
     "eval/mapper_accuracy.py": {}, "eval/gaf2sam.py": {}, "eval/support.py": {},
     "eval/introns.py": {}, "eval/bench.py": {},
+    "io/xopen.py": [(15, 15, 15, 16), (30, 29, 31, 31), (35, 34, 37, 39), (37, 41, 42, 42),
+                    (61, 77, 62, 62), (104, 103, 89, 149), (113, 115, 159, 163),
+                    (146, 146, 194, 194)],
     "eval/sim_truth.py": {
         6: "* :func:`simrc` — ``exps/1-dm-sim/scripts/simrc.py:1-187`` of the reference:"},
     "eval/cmp_tools.py": {
@@ -341,9 +350,20 @@ COPIED_FILES = {
 def test_copied_source_differs_only_in_the_package_name(rel):
     original = (REPO_ROOT / "pantas_tpu" / rel).read_text()
     expected = original.replace("pantas_tpu", "pantas_tpu_torch").split("\n")
-    for lineno, text in COPIED_FILES[rel].items():
-        expected[lineno - 1] = text
-    assert (REPO_ROOT / "pantas_tpu_torch" / rel).read_text().split("\n") == expected
+    port = (REPO_ROOT / "pantas_tpu_torch" / rel).read_text().split("\n")
+    changes = COPIED_FILES[rel]
+    if isinstance(changes, list):  # hunks, as tests/test_torch_scripts.py::CHANGED
+        original, expected, at = expected, [], 0
+        for a, b, c, d in changes:
+            expected += original[at : a - 1]
+            assert len(expected) == c - 1, f"original line {a} is not the port's line {c}"
+            expected += port[c - 1 : d]
+            at = b
+        expected += original[at:]
+    else:
+        for lineno, text in changes.items():
+            expected[lineno - 1] = text
+    assert port == expected
 
 
 SIM_FILES = ["c1_1.fq", "c1_2.fq", "c2_1.fq", "c2_2.fq", "truth.csv", "event_annotation.tsv",

@@ -324,6 +324,20 @@ def test_owned_subcommand_loads_nothing_foreign(tmp_path, case):
     assert produced.exists() and (produced.is_dir() or produced.stat().st_size > 0)
 
 
+@pytest.mark.parametrize("case", ["augment:native", "augment:device-py", "augment-dist", "map"])
+def test_compressed_output_loads_nothing_foreign(tmp_path, case):
+    """A ``-o *.zst`` output goes through ``open_stage_output``'s pipe and
+    drain thread and the libzstd binding, which load no module of
+    ``pantas_tpu`` and no ``jax``."""
+    argv = _argv(case, tmp_path)
+    argv[argv.index("-o") + 1] += ".zst"
+    proc = subprocess.run([sys.executable, "-c", PROBE, json.dumps(argv)],
+                          capture_output=True, text=True, cwd=REPO_ROOT)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stderr.strip().splitlines()[-1]) == {"rc": 0, "foreign": []}
+    assert (tmp_path / "out.zst").read_bytes()[:4] == b"\x28\xb5\x2f\xfd"
+
+
 @pytest.mark.parametrize("name", SCRIPT_NAMES)
 def test_script_loads_nothing_foreign(tmp_path, name):
     """``python -m pantas_tpu_torch.scripts.<name>`` at its tiny size on the

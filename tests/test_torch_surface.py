@@ -38,6 +38,7 @@ RENAMED = {
     "coverage/pallas_kernel.py::pick_scatter_endtoend":
         "coverage/scatter_impls.py::pick_scatter_endtoend",
     "coverage/pallas_kernel.py::pick_scatter_impl": "coverage/scatter_impls.py::pick_scatter_impl",
+    "io/xopen.py::_zstd": "io/zstd_ctypes.py::_lib",  # the zstandard module -> libzstd
     "native/gafcov.py::_SRC": "native/gafcov.py::_SOURCES",
     "native/gafcov.py::_SRC2": "native/gafcov.py::_SOURCES",
     "parallel/mesh.py::initialize_distributed": "parallel/distributed.py::initialize_distributed",
