@@ -22,13 +22,12 @@ import os
 import pickle
 import subprocess
 import sys
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pantas_tpu_torch import backend
+from pantas_tpu_torch import backend, trace
 from pantas_tpu_torch.coverage import kernels, scatter_impls
 from pantas_tpu_torch.coverage.host import CoverageCounts, emit_augmented_gfa
 from pantas_tpu_torch.coverage.semantics import (
@@ -181,79 +180,88 @@ class DeviceCoverage:
 
     def __init__(self, tensors: GraphTensors, device=None, batches_hint=None, log=None,
                  mesh: Optional[mesh_lib.CoverageMesh] = None):
-        self.t = tensors
-        self.mesh = mesh
-        # results land on the mesh's first device; no device and no mesh: the first card
-        self.device = backend.default_device(mesh.devices[0] if mesh is not None else device)
-        self.log = sys.stderr if log is None else log
-        self.batches = 0
-        self._launches_at_start = sum(kernels.LAUNCHES.values())
-        self._batches_hint = batches_hint
-        env = os.environ.get("PANTAS_SCATTER", "")
-        choice = scatter_choice(env)
-        self._force_race = env.lower() == "race"
-        if mesh is not None:
-            check_mesh_scatter(env)
-            step = scatter_impls.SCATTER_IMPLS[choice]
-            self.n_shards = mesh.data
-            if mesh.node is not None:
-                self._step, shard = mesh_lib.node_sharded_scatter_add(
-                    mesh, tensors.total_slots, step
-                )
-                self._padded_slots = shard * mesh.node
+        with trace.span("device.init"):
+            self.t = tensors
+            self.mesh = mesh
+            # results land on the mesh's first device; no device and no mesh: the first card
+            self.device = backend.default_device(mesh.devices[0] if mesh is not None else device)
+            self.log = sys.stderr if log is None else log
+            self.batches = 0
+            self._launches_at_start = sum(kernels.LAUNCHES.values())
+            self._batches_hint = batches_hint
+            env = os.environ.get("PANTAS_SCATTER", "")
+            choice = scatter_choice(env)
+            self._force_race = env.lower() == "race"
+            if mesh is not None:
+                check_mesh_scatter(env)
+                step = scatter_impls.SCATTER_IMPLS[choice]
+                self.n_shards = mesh.data
+                if mesh.node is not None:
+                    self._step, shard = mesh_lib.node_sharded_scatter_add(
+                        mesh, tensors.total_slots, step
+                    )
+                    self._padded_slots = shard * mesh.node
+                else:
+                    self._step = mesh_lib.data_parallel_scatter_add(mesh, step)
+                    shard = self._padded_slots = tensors.total_slots
+                # the kernels take counts of any length (they mask at ``n``), so
+                # the partials are not padded further
+                self.counts = mesh_lib.new_parts(mesh, shard)
+                label = f"{impl_label(choice, self.device)} on a {mesh} mesh"
             else:
-                self._step = mesh_lib.data_parallel_scatter_add(mesh, step)
-                shard = self._padded_slots = tensors.total_slots
-            # the kernels take counts of any length (they mask at ``n``), so
-            # the partials are not padded further
-            self.counts = mesh_lib.new_parts(mesh, shard)
-            label = f"{impl_label(choice, self.device)} on a {mesh} mesh"
-        else:
-            self.n_shards = 1
-            # the JAX engine's power-of-two bucket, kept so both engines hold
-            # the same padded vector (checkpoints and tests compare them)
-            self._padded_slots = max(1 << 12, 1 << (tensors.total_slots - 1).bit_length())
-            self.counts = torch.zeros(self._padded_slots, dtype=torch.int32, device=self.device)
-            # resolved on the first real batch when racing
-            self._step = None if choice == "race" else scatter_impls.SCATTER_IMPLS[choice]
-            label = "race pending" if choice == "race" else impl_label(choice, self.device)
-        print(
-            f"[device] scatter impl: {label} ({self._padded_slots} slots, "
-            f"~{batches_hint} batches expected)",
-            file=self.log,
-        )
+                self.n_shards = 1
+                # the JAX engine's power-of-two bucket, kept so both engines hold
+                # the same padded vector (checkpoints and tests compare them)
+                self._padded_slots = max(1 << 12, 1 << (tensors.total_slots - 1).bit_length())
+                self.counts = torch.zeros(self._padded_slots, dtype=torch.int32, device=self.device)
+                # resolved on the first real batch when racing
+                self._step = None if choice == "race" else scatter_impls.SCATTER_IMPLS[choice]
+                label = "race pending" if choice == "race" else impl_label(choice, self.device)
+            print(
+                f"[device] scatter impl: {label} ({self._padded_slots} slots, "
+                f"~{batches_hint} batches expected)",
+                file=self.log,
+            )
 
     def add_slots(self, slots: np.ndarray, pad_to: Optional[int] = None) -> None:
         """Accumulate a slot batch, -1-padded to ``pad_to`` entries."""
-        if pad_to is not None and len(slots) != pad_to:
-            padded = -np.ones(pad_to, dtype=np.int32)
-            padded[: len(slots)] = slots
-            slots = padded
-        if self.mesh is not None:
-            if len(slots) % self.n_shards != 0:
-                slots = mesh_lib.pad_to_multiple(slots, self.n_shards)
-            # the batch stays on the host; the mesh step copies each shard
-            self._step(self.counts, torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32)))
+        with trace.span("device.add_slots"):
+            if pad_to is not None and len(slots) != pad_to:
+                trace.add("device.pad_slots", pad_to - len(slots))
+                padded = -np.ones(pad_to, dtype=np.int32)
+                padded[: len(slots)] = slots
+                slots = padded
+            trace.add("device.batches")
+            trace.add("device.h2d_bytes", len(slots) * 4)
+            if self.mesh is not None:
+                if len(slots) % self.n_shards != 0:
+                    slots = mesh_lib.pad_to_multiple(slots, self.n_shards)
+                # the batch stays on the host; the mesh step copies each shard
+                with trace.span("device.launch"):
+                    self._step(self.counts,
+                               torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32)))
+                self.batches += 1
+                return
+            step = self._step
+            if step is None:
+                if not (np.asarray(slots) >= 0).any():
+                    # an all-padding batch must not decide the race: its empty
+                    # stream verifies any impl and times none; it goes through
+                    # the plain step and the race waits for a real batch
+                    step = scatter_impls.SCATTER_IMPLS["plain"]
+                else:
+                    name, step = scatter_impls.pick_scatter_endtoend(
+                        self._padded_slots, len(slots), sample=slots,
+                        force_race=self._force_race, batches_hint=self._batches_hint,
+                        device=self.device,
+                    )
+                    print(f"[device] scatter impl: {impl_label(name, self.device)}", file=self.log)
+                    self._step = step
+            with trace.span("device.h2d"):
+                idx = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32)).to(self.device)
+            with trace.span("device.launch"):
+                step(self.counts, idx)
             self.batches += 1
-            return
-        step = self._step
-        if step is None:
-            if not (np.asarray(slots) >= 0).any():
-                # an all-padding batch must not decide the race: its empty
-                # stream verifies any impl and times none; it goes through
-                # the plain step and the race waits for a real batch
-                step = scatter_impls.SCATTER_IMPLS["plain"]
-            else:
-                name, step = scatter_impls.pick_scatter_endtoend(
-                    self._padded_slots, len(slots), sample=slots,
-                    force_race=self._force_race, batches_hint=self._batches_hint,
-                    device=self.device,
-                )
-                print(f"[device] scatter impl: {impl_label(name, self.device)}", file=self.log)
-                self._step = step
-        idx = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32)).to(self.device)
-        step(self.counts, idx)
-        self.batches += 1
 
     def merged(self) -> torch.Tensor:
         """The counts as one tensor on :attr:`device`: the single-device
@@ -285,18 +293,20 @@ class DeviceCoverage:
         if self.mesh is None:
             merged = self.counts
         else:
-            # the one reduction, timed on its own: the shards' queued steps
-            # are waited for first
-            self._sync()
-            t0 = time.perf_counter()
-            merged = self.merged()
-            self._sync()
             held = sum(p.numel() * p.element_size() for row in self.counts for p in row)
-            print(
-                f"[device] mesh {self.mesh}: {held} bytes of partials reduced in "
-                f"{time.perf_counter() - t0:.4f}s",
-                file=self.log,
-            )
+            if not trace.enabled():
+                merged = self.merged()
+                print(f"[device] mesh {self.mesh}: {held} bytes of partials reduced",
+                      file=self.log)
+            else:
+                # the one reduction, timed on its own: the shards' queued
+                # steps are waited for first
+                self._sync()
+                with trace.span("device.mesh_reduce") as reduce:
+                    merged = self.merged()
+                    self._sync()
+                print(f"[device] mesh {self.mesh}: {held} bytes of partials reduced in "
+                      f"{reduce.seconds:.4f}s", file=self.log)
         flat = self._read_back(merged)
         self.log_launches()
         return flat
@@ -315,20 +325,30 @@ class DeviceCoverage:
         genome-scale dense copy is 1 GiB. One scalar readback for the
         nonzero count, then (indices, values) unless the vector is dense
         (``4 * nnz >= total``, the JAX engine's rule)."""
-        total = self.t.total_slots
-        flat = counts[:total]
-        if flat.device.type == "cpu":
-            # host memory is the device memory: a dense copy is free
-            return flat.numpy().copy()
-        nnz = int(torch.count_nonzero(flat))
-        if nnz == 0:
-            return np.zeros(total, dtype=np.int32)
-        if 4 * nnz >= total:
-            return flat.cpu().numpy()
-        idx = torch.nonzero(flat).flatten()
-        out = np.zeros(total, dtype=np.int32)
-        out[idx.cpu().numpy()] = flat[idx].cpu().numpy()
-        return out
+        with trace.span("device.readback"):
+            total = self.t.total_slots
+            flat = counts[:total]
+            if flat.device.type == "cpu":
+                # host memory is the device memory: a dense copy is free
+                with trace.span("device.readback_copy"):
+                    out = flat.numpy().copy()
+                trace.add("device.readback_bytes", out.nbytes)
+                return out
+            with trace.span("device.readback_sync"):  # waits for the queued kernels too
+                nnz = int(torch.count_nonzero(flat))
+            trace.add("device.readback_nnz", nnz)
+            with trace.span("device.readback_copy"):
+                if nnz == 0:
+                    return np.zeros(total, dtype=np.int32)
+                if 4 * nnz >= total:
+                    out = flat.cpu().numpy()
+                    trace.add("device.readback_bytes", out.nbytes)
+                    return out
+                idx = torch.nonzero(flat).flatten()
+                out = np.zeros(total, dtype=np.int32)
+                out[idx.cpu().numpy()] = flat[idx].cpu().numpy()
+                trace.add("device.readback_bytes", 12 * nnz)  # int64 indices, int32 values
+                return out
 
 
 def _restore_counts(state: dict, dev: DeviceCoverage) -> None:
@@ -505,7 +525,8 @@ def _native_engine(tensors: GraphTensors):
     from pantas_tpu_torch.native.gafcov import NativeCoverage
 
     try:
-        return NativeCoverage(tensors)
+        with trace.span("native.engine_init"):
+            return NativeCoverage(tensors)
     except (OSError, subprocess.SubprocessError, ValueError) as e:
         raise NativeFeedUnavailable(str(e)) from e
 
@@ -546,100 +567,108 @@ def augment_gfa_device_native(
     Raises :class:`NativeFeedUnavailable` if the native engine cannot serve
     the graph; callers may then use :func:`augment_gfa_device`.
     """
-    log = sys.stderr if log is None else log
-    print("Read GFA (tensorize)", file=log)
-    if tensors is None:
-        tensors = compile_gfa(gfa_path)
-    eng = _native_engine(tensors)
-    dev = DeviceCoverage(
-        tensors, device, batches_hint=_estimate_batches(gaf_path, flush_every), log=log,
-        mesh=mesh,
-    )
-
-    start_offset = 0
-    base_sidecars: list = []
-    if resume and checkpoint_path and os.path.exists(checkpoint_path):
-        with open(checkpoint_path, "rb") as fh:
-            state = pickle.load(fh)
-        _check_graph(state, tensors)
-        _restore_counts(state, dev)
-        start_offset = state["offset"]
-        base_sidecars = state["sidecars"]
-        print(f"Resuming from checkpoint at offset {start_offset}", file=log)
-
-    print("Augmentation by GAF alignments (native parse -> device)", file=log)
-    sess = eng.slots_begin(gaf_path, start_offset, -1, mapq_thr)
-    end_pos = start_offset
-    try:
-        batches = 0
-        while True:
-            # a fresh host buffer per batch: the synchronous copy in
-            # add_slots has read it before the parser refills anything
-            buf = np.empty(flush_every, dtype=np.int32)
-            n = eng.slots_next(sess, buf)
-            if n == 0:
-                end_pos = eng.slots_pos(sess)
-                break
-            if n < flush_every:
-                buf[n:] = -1  # pad the final partial batch
-            dev.add_slots(buf, pad_to=flush_every)
-            batches += 1
-            if checkpoint_path and batches % max(checkpoint_every, 1) == 0:
-                # drain the parser's residual so (offset, counts) agree — one
-                # record can yield more slots than flush_every, so loop
-                pend = np.empty(flush_every, dtype=np.int32)
-                while (np_ := eng.slots_take_pending(sess, pend)):
-                    pend[np_:] = -1
-                    dev.add_slots(pend, pad_to=flush_every)
-                _save_native_checkpoint(
-                    checkpoint_path, dev, eng, tensors,
-                    eng.slots_pos(sess), base_sidecars,
-                )
-                if _stop_after is not None and batches >= _stop_after:
-                    return None  # test hook: simulate a crash after a save
-        flat = dev.result()
-    finally:
-        eng.slots_end(sess)
-    if checkpoint_path:
-        # the EOF offset is the parser's own (decompressed) end position, and
-        # the counts are the ones result() just read back
-        _save_native_checkpoint(
-            checkpoint_path, dev, eng, tensors, end_pos, base_sidecars, flat=flat
+    with trace.span("stage.augment"):
+        log = sys.stderr if log is None else log
+        print("Read GFA (tensorize)", file=log)
+        if tensors is None:
+            tensors = compile_gfa(gfa_path)
+        eng = _native_engine(tensors)
+        dev = DeviceCoverage(
+            tensors, device, batches_hint=_estimate_batches(gaf_path, flush_every), log=log,
+            mesh=mesh,
         )
 
-    if base_sidecars:
-        # resumed run: rebuild the global first-seen orders by merging the
-        # pre-interruption sidecars with this run's, then emit via the
-        # encoder path
-        from pantas_tpu_torch.parallel.distributed import _merge_sidecars, _native_sidecar
+        start_offset = 0
+        base_sidecars: list = []
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            with open(checkpoint_path, "rb") as fh:
+                state = pickle.load(fh)
+            _check_graph(state, tensors)
+            _restore_counts(state, dev)
+            start_offset = state["offset"]
+            base_sidecars = state["sidecars"]
+            print(f"Resuming from checkpoint at offset {start_offset}", file=log)
 
-        enc = _merge_sidecars(tensors, base_sidecars + [_native_sidecar(tensors, eng)])
-        counts = counts_from_device(tensors, enc, flat)
-        print(f"Rejected alignments: {counts.rejected}", file=log)
+        print("Augmentation by GAF alignments (native parse -> device)", file=log)
+        with trace.span("native.stream"):
+            sess = eng.slots_begin(gaf_path, start_offset, -1, mapq_thr)
+            end_pos = start_offset
+            try:
+                batches = 0
+                while True:
+                    # a fresh host buffer per batch: the synchronous copy in
+                    # add_slots has read it before the parser refills anything
+                    buf = np.empty(flush_every, dtype=np.int32)
+                    with trace.span("native.slots_next"):
+                        n = eng.slots_next(sess, buf)
+                    if n == 0:
+                        end_pos = eng.slots_pos(sess)
+                        break
+                    if n < flush_every:
+                        buf[n:] = -1  # pad the final partial batch
+                        trace.add("device.pad_slots", flush_every - n)
+                    dev.add_slots(buf, pad_to=flush_every)
+                    batches += 1
+                    if checkpoint_path and batches % max(checkpoint_every, 1) == 0:
+                        # drain the parser's residual so (offset, counts) agree — one
+                        # record can yield more slots than flush_every, so loop
+                        pend = np.empty(flush_every, dtype=np.int32)
+                        while (np_ := eng.slots_take_pending(sess, pend)):
+                            pend[np_:] = -1
+                            trace.add("device.pad_slots", flush_every - np_)
+                            dev.add_slots(pend, pad_to=flush_every)
+                        _save_native_checkpoint(
+                            checkpoint_path, dev, eng, tensors,
+                            eng.slots_pos(sess), base_sidecars,
+                        )
+                        if _stop_after is not None and batches >= _stop_after:
+                            return None  # test hook: simulate a crash after a save
+                flat = dev.result()
+            finally:
+                if trace.enabled():
+                    for name, value in eng.slots_stats(sess).items():
+                        trace.add(name, value)
+                eng.slots_end(sess)
+        if checkpoint_path:
+            # the EOF offset is the parser's own (decompressed) end position, and
+            # the counts are the ones result() just read back
+            _save_native_checkpoint(
+                checkpoint_path, dev, eng, tensors, end_pos, base_sidecars, flat=flat
+            )
+
+        if base_sidecars:
+            # resumed run: rebuild the global first-seen orders by merging the
+            # pre-interruption sidecars with this run's, then emit via the
+            # encoder path
+            from pantas_tpu_torch.parallel.distributed import _merge_sidecars, _native_sidecar
+
+            enc = _merge_sidecars(tensors, base_sidecars + [_native_sidecar(tensors, eng)])
+            counts = counts_from_device(tensors, enc, flat)
+            print(f"Rejected alignments: {counts.rejected}", file=log)
+            print("Annotating GFA", file=log)
+            emit_augmented_gfa(gfa_path, counts, out)
+            return counts
+
+        eng.set_counts(flat)  # device values back the emission
+        print(f"Rejected alignments: {int(eng.lib.gafcov_rejected(eng.handle))}", file=log)
         print("Annotating GFA", file=log)
+        import io as _io
+
+        try:
+            out.flush()
+            fd = out.fileno()
+        except (AttributeError, OSError, _io.UnsupportedOperation):
+            fd = None
+        if fd is not None:
+            eng.emit(gfa_path, fd)
+            counts = CoverageCounts()
+            counts.rejected = int(eng.lib.gafcov_rejected(eng.handle))
+            counts.skipped = int(eng.lib.gafcov_skipped(eng.handle))
+            counts.accepted = int(eng.lib.gafcov_accepted(eng.handle))
+            return counts
+        counts = eng.to_counts()
         emit_augmented_gfa(gfa_path, counts, out)
         return counts
-
-    eng.set_counts(flat)  # device values back the emission
-    print(f"Rejected alignments: {int(eng.lib.gafcov_rejected(eng.handle))}", file=log)
-    print("Annotating GFA", file=log)
-    import io as _io
-
-    try:
-        out.flush()
-        fd = out.fileno()
-    except (AttributeError, OSError, _io.UnsupportedOperation):
-        fd = None
-    if fd is not None:
-        eng.emit(gfa_path, fd)
-        counts = CoverageCounts()
-        counts.rejected = int(eng.lib.gafcov_rejected(eng.handle))
-        counts.skipped = int(eng.lib.gafcov_skipped(eng.handle))
-        counts.accepted = int(eng.lib.gafcov_accepted(eng.handle))
-        return counts
-    counts = eng.to_counts()
-    emit_augmented_gfa(gfa_path, counts, out)
-    return counts
 
 
 def augment_gfa_device(

@@ -18,6 +18,8 @@ batched caller:
 """
 
 from __future__ import annotations
+
+from pantas_tpu_torch import trace
 from pantas_tpu_torch.io.xopen import xopen
 
 from dataclasses import dataclass
@@ -66,49 +68,57 @@ def compile_gfa(gfa_path: str, engine: str = "auto") -> GraphTensors:
     """GFA -> GraphTensors. ``engine="auto"`` tries the native structural
     scan (mmap + strtoll in C++, ~10× the Python loop; falls back here for
     non-canonical-integer segment ids); ``"python"`` forces the fallback."""
+    with trace.span("graph.compile_gfa"):
+        return _compile(gfa_path, engine)
+
+
+def _compile(gfa_path: str, engine: str) -> GraphTensors:
     if engine != "python":
         scanned = None
-        try:
-            from pantas_tpu_torch.native.gafcov import scan_gfa_structure
+        with trace.span("graph.scan"):
+            try:
+                from pantas_tpu_torch.native.gafcov import scan_gfa_structure
 
-            scanned = scan_gfa_structure(gfa_path)
-        except Exception:
-            scanned = None
+                scanned = scan_gfa_structure(gfa_path)
+            except Exception:
+                scanned = None
         if scanned is not None:
-            ids, lens_arr, esrc_ids, edst_ids = scanned
-            names = [str(i) for i in ids.tolist()]
-            index = {n: i for i, n in enumerate(names)}
-            if len(esrc_ids):
-                if len(ids) > 1 and bool(np.all(ids[1:] > ids[:-1])):
-                    spos = np.searchsorted(ids, esrc_ids)
-                    dpos = np.searchsorted(ids, edst_ids)
-                    spos_c = np.minimum(spos, len(ids) - 1)
-                    dpos_c = np.minimum(dpos, len(ids) - 1)
-                    if not (
-                        np.array_equal(ids[spos_c], esrc_ids)
-                        and np.array_equal(ids[dpos_c], edst_ids)
-                    ):
-                        bad = esrc_ids[ids[spos_c] != esrc_ids]
-                        bad = bad if len(bad) else edst_ids[ids[dpos_c] != edst_ids]
-                        raise KeyError(str(int(bad[0])))  # same as index[...] miss
-                    src_i, dst_i = spos_c.astype(np.int64), dpos_c.astype(np.int64)
+            with trace.span("graph.index"):
+                ids, lens_arr, esrc_ids, edst_ids = scanned
+                names = [str(i) for i in ids.tolist()]
+                index = {n: i for i, n in enumerate(names)}
+                if len(esrc_ids):
+                    if len(ids) > 1 and bool(np.all(ids[1:] > ids[:-1])):
+                        spos = np.searchsorted(ids, esrc_ids)
+                        dpos = np.searchsorted(ids, edst_ids)
+                        spos_c = np.minimum(spos, len(ids) - 1)
+                        dpos_c = np.minimum(dpos, len(ids) - 1)
+                        if not (
+                            np.array_equal(ids[spos_c], esrc_ids)
+                            and np.array_equal(ids[dpos_c], edst_ids)
+                        ):
+                            bad = esrc_ids[ids[spos_c] != esrc_ids]
+                            bad = bad if len(bad) else edst_ids[ids[dpos_c] != edst_ids]
+                            raise KeyError(str(int(bad[0])))  # same as index[...] miss
+                        src_i, dst_i = spos_c.astype(np.int64), dpos_c.astype(np.int64)
+                    else:
+                        id2i = {int(v): i for i, v in enumerate(ids.tolist())}
+                        try:
+                            src_i = np.asarray([id2i[int(v)] for v in esrc_ids], np.int64)
+                            dst_i = np.asarray([id2i[int(v)] for v in edst_ids], np.int64)
+                        except KeyError:
+                            raise
                 else:
-                    id2i = {int(v): i for i, v in enumerate(ids.tolist())}
-                    try:
-                        src_i = np.asarray([id2i[int(v)] for v in esrc_ids], np.int64)
-                        dst_i = np.asarray([id2i[int(v)] for v in edst_ids], np.int64)
-                    except KeyError:
-                        raise
-            else:
-                src_i = dst_i = np.zeros(0, np.int64)
-            return _assemble(names, index, lens_arr.astype(np.int32), src_i, dst_i)
+                    src_i = dst_i = np.zeros(0, np.int64)
+            with trace.span("graph.assemble"):
+                return _assemble(names, index, lens_arr.astype(np.int32), src_i, dst_i)
 
     names: List[str] = []
     lens: List[int] = []
     index: Dict[str, int] = {}
     edges: List[Tuple[int, int]] = []
 
-    with xopen(gfa_path) as fh:
+    with trace.span("graph.scan"), xopen(gfa_path) as fh:
         for line in fh:
             c = line[0] if line else ""
             if c == "S":
@@ -127,13 +137,14 @@ def compile_gfa(gfa_path: str, engine: str = "auto") -> GraphTensors:
                 t = line.split("\t", 5)
                 edges.append((index[t[1]], index[t[3]]))
 
-    node_len = np.asarray(lens, dtype=np.int32)
-    if edges:
-        src = np.asarray([a for a, _ in edges], dtype=np.int64)
-        dst = np.asarray([b for _, b in edges], dtype=np.int64)
-    else:
-        src = dst = np.zeros(0, dtype=np.int64)
-    return _assemble(names, index, node_len, src, dst)
+    with trace.span("graph.assemble"):
+        node_len = np.asarray(lens, dtype=np.int32)
+        if edges:
+            src = np.asarray([a for a, _ in edges], dtype=np.int64)
+            dst = np.asarray([b for _, b in edges], dtype=np.int64)
+        else:
+            src = dst = np.zeros(0, dtype=np.int64)
+        return _assemble(names, index, node_len, src, dst)
 
 
 def _assemble(

@@ -16,6 +16,7 @@
 #include <fcntl.h>
 #include <sys/mman.h>
 #include <sys/stat.h>
+#include <time.h>
 #include <unistd.h>
 #include <cstdio>
 #include <cstdlib>
@@ -30,6 +31,14 @@
 #include <vector>
 
 namespace {
+
+// CLOCK_MONOTONIC nanoseconds: Python's time.perf_counter_ns() on Linux, so
+// the stamps below line up with the port's spans (pantas_tpu_torch/trace.py)
+inline int64_t mono_ns() {
+  struct timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return (int64_t)ts.tv_sec * 1000000000 + ts.tv_nsec;
+}
 
 struct Cig {
   char op;
@@ -77,6 +86,9 @@ struct Engine {
   std::vector<uint64_t> novel_order;
 
   int64_t rejected = 0, skipped = 0, accepted = 0;
+
+  // the last emission's phases and sizes (gafcov_emit_stats)
+  int64_t emit_stats[13] = {0};
 
   // scratch
   std::vector<Cig> cig;
@@ -904,8 +916,19 @@ bool emit_range(Engine *E, const char *begin, const char *end, const char *hard_
 
 }  // namespace
 
+// Every call stamps its phases on CLOCK_MONOTONIC into the engine's
+// emit_stats (read by gafcov_emit_stats): [0, 1] the counts' drain and the
+// seen-order binning, [2, 3] the slurp of the GFA, [4, 5] the formatting of
+// its lines, [6, 7] every write to out_fd and its close (the time blocked on
+// whoever reads the output), [8, 9] the formatting of the novel links; then
+// [10] the chunks formatted, [11] the threads started (1 on the serial path),
+// [12] the bytes written. The formatted body is held until the novel links
+// are formatted too, so all writing is one phase; the bytes are unchanged.
 int64_t gafcov_emit_mt(void *h, const char *gfa_in, int out_fd, int n_threads) {
   Engine *E = (Engine *)h;
+  int64_t *st = E->emit_stats;
+  std::fill(st, st + 13, 0);
+  st[0] = mono_ns();
   E->flush_bins();  // binned mode defers increments; drain before reading
   FILE *in = fopen(gfa_in, "rb");
   if (!in) return -1;
@@ -930,6 +953,7 @@ int64_t gafcov_emit_mt(void *h, const char *gfa_in, int out_fd, int n_threads) {
     }
     (is_il ? il_offs : ol_offs)[lo].push_back(slot - base[lo] - 1);
   }
+  st[1] = st[2] = mono_ns();
 
   // slurp the GFA (graph text fits memory by construction of this pipeline)
   fseek(in, 0, SEEK_END);
@@ -943,16 +967,19 @@ int64_t gafcov_emit_mt(void *h, const char *gfa_in, int out_fd, int n_threads) {
     return -3;
   }
   buf[fsize] = '\n';
+  st[3] = st[4] = mono_ns();
 
   std::vector<uint8_t> claimed(E->n_edges, 0);
+  std::vector<std::string> bufs;  // the formatted body, in file order
   if (n_threads < 1) n_threads = 1;
   // PANTAS_EMIT_FORCE_MT lets tests exercise the chunked path on tiny files
   if (n_threads == 1 ||
       (fsize < (8 << 20) && !getenv("PANTAS_EMIT_FORCE_MT"))) {
-    std::string o;
+    bufs.resize(1);
     emit_range(E, buf, buf + fsize, buf + fsize + 1, il_offs, ol_offs,
-               claimed.data(), false, o);
-    fwrite(o.data(), 1, o.size(), out);
+               claimed.data(), false, bufs[0]);
+    st[10] = 1;
+    st[11] = 1;
   } else {
     // line-aligned chunks formatted by a dynamic worklist of T threads;
     // every buffer is formatted BEFORE any byte is written, so the
@@ -971,7 +998,7 @@ int64_t gafcov_emit_mt(void *h, const char *gfa_in, int out_fd, int n_threads) {
       cuts.push_back(nl ? nl + 1 : buf + fsize);
     }
     size_t n_chunks = cuts.size() - 1;
-    std::vector<std::string> bufs(n_chunks);
+    bufs.resize(n_chunks);
     std::atomic<size_t> next{0};
     std::atomic<bool> fail{false};
     std::vector<std::thread> threads;
@@ -986,39 +1013,46 @@ int64_t gafcov_emit_mt(void *h, const char *gfa_in, int out_fd, int n_threads) {
       });
     }
     for (auto &t : threads) t.join();
+    st[10] = (int64_t)n_chunks;
+    st[11] = n_threads;
     if (fail.load()) {
       // duplicate L line: FILE order (not claim order) must decide which
       // occurrence prints the weight — redo in one ordered pass
       std::fill(claimed.begin(), claimed.end(), 0);
-      std::string o;
+      bufs.assign(1, std::string());
       emit_range(E, buf, buf + fsize, buf + fsize + 1, il_offs, ol_offs,
-                 claimed.data(), false, o);
-      fwrite(o.data(), 1, o.size(), out);
-    } else {
-      for (size_t c = 0; c < n_chunks; ++c)
-        fwrite(bufs[c].data(), 1, bufs[c].size(), out);
+                 claimed.data(), false, bufs[0]);
     }
   }
   free(buf);
   fclose(in);
+  st[5] = st[8] = mono_ns();
 
   // novel links in first-seen order
+  std::string novel;
   char tag[256];
   for (uint64_t key : E->novel_order) {
     int64_t a = E->ids ? E->ids[key >> 32] : (int64_t)(key >> 32) + 1;
     int64_t b = E->ids ? E->ids[key & 0xFFFFFFFFu] : (int64_t)(key & 0xFFFFFFFFu) + 1;
     int n = snprintf(tag, sizeof tag, "L\t%lld\t+\t%lld\t+\t*\tRC:i:%d\tID:Z:N\n",
                      (long long)a, (long long)b, E->novel[key]);
-    fwrite(tag, 1, n, out);
+    novel.append(tag, n);
   }
+  st[9] = st[6] = mono_ns();
+
+  for (const std::string &b : bufs) st[12] += fwrite(b.data(), 1, b.size(), out);
+  st[12] += fwrite(novel.data(), 1, novel.size(), out);
   // surface short writes (ENOSPC, dead pipe): a silently truncated
   // augmented GFA reported as success corrupts every downstream stage
-  if (ferror(out)) {
-    fclose(out);
-    return -3;
-  }
-  if (fclose(out) != 0) return -3;
-  return 0;
+  bool failed = ferror(out) != 0;
+  if (fclose(out) != 0) failed = true;
+  st[7] = mono_ns();
+  return failed ? -3 : 0;
+}
+
+// the last emission's 13 numbers (see gafcov_emit_mt)
+void gafcov_emit_stats(void *h, int64_t *out13) {
+  memcpy(out13, ((Engine *)h)->emit_stats, 13 * sizeof(int64_t));
 }
 
 int64_t gafcov_emit(void *h, const char *gfa_in, int out_fd) {
@@ -1057,6 +1091,9 @@ struct SlotSession {
   const char *end = nullptr;
   int mapq_thr;
   double max_dv;
+  // totals of the session (gafcov_slots_stats): nanoseconds in the line
+  // loop and in the hand-off, records parsed, bytes walked, slots delivered
+  int64_t parse_ns = 0, handoff_ns = 0, records = 0, bytes = 0, delivered = 0;
 };
 }  // namespace
 
@@ -1104,21 +1141,31 @@ void *gafcov_slots_begin(void *h, const char *path, int64_t lo, int64_t hi,
 int64_t gafcov_slots_next(void *s, int32_t *buf, int64_t cap) {
   SlotSession *S = (SlotSession *)s;
   Engine &E = *S->E;
+  int64_t t0 = mono_ns();
+  const char *p0 = S->p;
   while ((int64_t)E.slot_stream.size() < cap && S->p < S->end) {
     const char *nl = (const char *)memchr(S->p, '\n', S->end - S->p);
     const char *le = nl ? nl : S->end;
     const char *ls = S->p;
     E.cur_pos = ls - S->data;
     while (le > ls && (le[-1] == '\r' || le[-1] == ' ')) --le;
-    if (le > ls) process_line(E, ls, le, S->mapq_thr, S->max_dv);
+    if (le > ls) {
+      process_line(E, ls, le, S->mapq_thr, S->max_dv);
+      ++S->records;
+    }
     S->p = nl ? nl + 1 : S->end;
   }
+  S->bytes += S->p - p0;
+  int64_t t1 = mono_ns();
   int64_t n = (int64_t)E.slot_stream.size();
   if (n > cap) n = cap;
   if (n) {
     memcpy(buf, E.slot_stream.data(), n * sizeof(int32_t));
     E.slot_stream.erase(E.slot_stream.begin(), E.slot_stream.begin() + n);
   }
+  S->delivered += n;
+  S->parse_ns += t1 - t0;
+  S->handoff_ns += mono_ns() - t1;
   return n;
 }
 
@@ -1134,13 +1181,24 @@ int64_t gafcov_slots_pos(void *s) {
 int64_t gafcov_slots_take_pending(void *s, int32_t *buf, int64_t cap) {
   SlotSession *S = (SlotSession *)s;
   Engine &E = *S->E;
+  int64_t t0 = mono_ns();
   int64_t n = (int64_t)E.slot_stream.size();
   if (n > cap) n = cap;
   if (n) {
     memcpy(buf, E.slot_stream.data(), n * sizeof(int32_t));
     E.slot_stream.erase(E.slot_stream.begin(), E.slot_stream.begin() + n);
   }
+  S->delivered += n;
+  S->handoff_ns += mono_ns() - t0;
   return n;
+}
+
+// the session's totals so far: [parse_ns, handoff_ns, records, bytes,
+// delivered]; read them before gafcov_slots_end
+void gafcov_slots_stats(void *s, int64_t *out5) {
+  SlotSession *S = (SlotSession *)s;
+  int64_t v[5] = {S->parse_ns, S->handoff_ns, S->records, S->bytes, S->delivered};
+  memcpy(out5, v, sizeof v);
 }
 
 void gafcov_slots_end(void *s) {

@@ -16,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 
+from pantas_tpu_torch import trace
 from pantas_tpu_torch.coverage.host import CoverageCounts, emit_augmented_gfa
 from pantas_tpu_torch.graph.compiler import GraphTensors, compile_gfa
 
@@ -24,6 +25,13 @@ from pantas_tpu_torch.native._build import SRC_DIR, build_shared
 _SOURCES = (SRC_DIR / "gafcov.cpp", SRC_DIR / "aligner.cpp")
 
 _lib = None
+
+# the slot session's totals (gafcov_slots_stats), as trace counters
+SLOT_STATS = ("slots.parse_ns", "slots.handoff_ns", "slots.records", "slots.bytes",
+              "slots.delivered")
+# an emission's phases, in the order of gafcov_emit_stats's stamps, and its sizes
+EMIT_PHASES = ("emit.bin", "emit.slurp", "emit.format", "emit.write", "emit.novel")
+EMIT_COUNTS = ("emit.chunks", "emit.threads", "emit.bytes_out")
 
 
 def build_library(force: bool = False) -> Path:
@@ -91,6 +99,10 @@ def _load():
     lib.gafcov_slots_pos.argtypes = [ctypes.c_void_p]
     lib.gafcov_slots_take_pending.restype = i64
     lib.gafcov_slots_take_pending.argtypes = [ctypes.c_void_p, P(i32), i64]
+    lib.gafcov_slots_stats.restype = None
+    lib.gafcov_slots_stats.argtypes = [ctypes.c_void_p, P(i64)]
+    lib.gafcov_emit_stats.restype = None
+    lib.gafcov_emit_stats.argtypes = [ctypes.c_void_p, P(i64)]
     lib.gafcov_counts_set.restype = None
     lib.gafcov_counts_set.argtypes = [ctypes.c_void_p, P(i32)]
     lib.gafcov_seen_pos.restype = P(i64)
@@ -256,46 +268,48 @@ class NativeCoverage:
         lib = _load()
         self.lib = lib
         self.t = tensors
-        try:
-            ids = np.asarray([int(n) for n in tensors.node_names], dtype=np.int64)
-            # CANONICAL ids only: '007' would int() onto segment '7' and
-            # silently merge both segments' counts into one slot (and
-            # novel-link emission would print the canonical form, breaking
-            # byte-identity). int() also tolerates '+7'/' 7'/'1_0', so
-            # require plain digits with no leading zero — equivalent to
-            # the str(int(n)) == n round trip but ~3x cheaper at 5.5M
-            # names (same guard events/sites.py claims).
-            if not all(
-                n.isdigit() and (len(n) == 1 or n[0] != "0")
-                for n in tensors.node_names
-            ):
-                raise ValueError("non-canonical integer segment id")
-        except ValueError as e:
-            raise ValueError("native path requires integer segment ids") from e
-        order = np.argsort(ids, kind="stable")
-        if not np.array_equal(order, np.arange(len(ids))):
-            raise ValueError("native path requires ids sorted in file order")
-        dense = bool(
-            len(ids) > 0 and ids[0] == 1 and np.array_equal(ids, np.arange(1, len(ids) + 1))
-        )
-        # keep every array alive for the lifetime of the handle
-        self._ids = ids
-        self._node_len = np.ascontiguousarray(tensors.node_len, dtype=np.int32)
-        self._edge_key = np.ascontiguousarray(tensors.edge_key, dtype=np.uint64)
-        self._il_base = np.ascontiguousarray(tensors.il_base, dtype=np.int64)
-        self._ol_base = np.ascontiguousarray(tensors.ol_base, dtype=np.int64)
-        self.handle = lib.gafcov_create(
-            len(ids),
-            _ptr(self._ids, ctypes.c_int64),
-            _ptr(self._node_len, ctypes.c_int32),
-            _ptr(self._edge_key, ctypes.c_uint64),
-            len(self._edge_key),
-            _ptr(self._il_base, ctypes.c_int64),
-            _ptr(self._ol_base, ctypes.c_int64),
-            tensors.rc_base,
-            tensors.total_slots,
-            1 if dense else 0,
-        )
+        with trace.span("native.ids_check"):
+            try:
+                ids = np.asarray([int(n) for n in tensors.node_names], dtype=np.int64)
+                # CANONICAL ids only: '007' would int() onto segment '7' and
+                # silently merge both segments' counts into one slot (and
+                # novel-link emission would print the canonical form, breaking
+                # byte-identity). int() also tolerates '+7'/' 7'/'1_0', so
+                # require plain digits with no leading zero — equivalent to
+                # the str(int(n)) == n round trip but ~3x cheaper at 5.5M
+                # names (same guard events/sites.py claims).
+                if not all(
+                    n.isdigit() and (len(n) == 1 or n[0] != "0")
+                    for n in tensors.node_names
+                ):
+                    raise ValueError("non-canonical integer segment id")
+            except ValueError as e:
+                raise ValueError("native path requires integer segment ids") from e
+            order = np.argsort(ids, kind="stable")
+            if not np.array_equal(order, np.arange(len(ids))):
+                raise ValueError("native path requires ids sorted in file order")
+            dense = bool(
+                len(ids) > 0 and ids[0] == 1 and np.array_equal(ids, np.arange(1, len(ids) + 1))
+            )
+        with trace.span("native.create"):
+            # keep every array alive for the lifetime of the handle
+            self._ids = ids
+            self._node_len = np.ascontiguousarray(tensors.node_len, dtype=np.int32)
+            self._edge_key = np.ascontiguousarray(tensors.edge_key, dtype=np.uint64)
+            self._il_base = np.ascontiguousarray(tensors.il_base, dtype=np.int64)
+            self._ol_base = np.ascontiguousarray(tensors.ol_base, dtype=np.int64)
+            self.handle = lib.gafcov_create(
+                len(ids),
+                _ptr(self._ids, ctypes.c_int64),
+                _ptr(self._node_len, ctypes.c_int32),
+                _ptr(self._edge_key, ctypes.c_uint64),
+                len(self._edge_key),
+                _ptr(self._il_base, ctypes.c_int64),
+                _ptr(self._ol_base, ctypes.c_int64),
+                tensors.rc_base,
+                tensors.total_slots,
+                1 if dense else 0,
+            )
         if os.environ.get("PANTAS_FORCE_BINS"):
             # test hook: exercise the binned accumulator on small graphs
             # (it auto-enables only beyond 8M count slots)
@@ -378,6 +392,12 @@ class NativeCoverage:
                 session, _ptr(buf, ctypes.c_int32), len(buf)
             )
         )
+
+    def slots_stats(self, session) -> dict:
+        """The session's totals so far, by :data:`SLOT_STATS` name."""
+        out = np.zeros(len(SLOT_STATS), np.int64)
+        self.lib.gafcov_slots_stats(session, _ptr(out, ctypes.c_int64))
+        return dict(zip(SLOT_STATS, out.tolist()))
 
     def set_counts(self, flat: np.ndarray) -> None:
         """Overwrite engine counts with the device-reduced vector (it then
@@ -468,10 +488,26 @@ class NativeCoverage:
         """Write the augmented GFA natively to a file descriptor."""
         from pantas_tpu_torch.io.xopen import materialized
 
-        with materialized(gfa_in) as plain:
-            rc = self.lib.gafcov_emit(self.handle, str(plain).encode(), out_fd)
-        if rc != 0:
-            raise IOError(f"gafcov_emit failed ({rc})")
+        with trace.span("native.emit"):
+            with materialized(gfa_in) as plain:
+                rc = self.lib.gafcov_emit(self.handle, str(plain).encode(), out_fd)
+            if rc != 0:
+                raise IOError(f"gafcov_emit failed ({rc})")
+            if trace.enabled():
+                phases, sizes = self.emit_stats()
+                for name, (t0, t1) in phases.items():
+                    trace.record(name, t0, t1)
+                for name, n in sizes.items():
+                    trace.add(name, n)
+
+    def emit_stats(self):
+        """The last emission's phases, ``{name: (t0, t1)}`` in
+        ``CLOCK_MONOTONIC`` nanoseconds (:data:`EMIT_PHASES`), and its sizes
+        (:data:`EMIT_COUNTS`)."""
+        out = np.zeros(13, np.int64)
+        self.lib.gafcov_emit_stats(self.handle, _ptr(out, ctypes.c_int64))
+        v = out.tolist()
+        return dict(zip(EMIT_PHASES, zip(v[0:10:2], v[1:10:2]))), dict(zip(EMIT_COUNTS, v[10:13]))
 
     def __del__(self):
         try:
