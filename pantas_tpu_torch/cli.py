@@ -108,7 +108,8 @@ def _cmd_augment(argv):
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="device of the device engines (default cuda; never falls back)",
     )
-    ap.add_argument("-t", dest="threads", type=int, default=1, help="native parse threads")
+    ap.add_argument("-t", dest="threads", type=int, default=None,
+                    help="native parse threads (default: every CPU the process may run on)")
     ap.add_argument(
         "--mesh",
         default=None,
@@ -183,7 +184,7 @@ def _run_augment(args, dev, mesh, out) -> int:
             try:
                 augment_gfa_device_native(
                     args.GAF, args.GFA, out=out, mapq_thr=args.thr, device=dev, mesh=mesh,
-                    checkpoint_path=args.checkpoint, resume=args.resume,
+                    checkpoint_path=args.checkpoint, resume=args.resume, threads=args.threads,
                 )
                 return 0
             except NativeFeedUnavailable as e:

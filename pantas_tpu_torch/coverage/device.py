@@ -544,6 +544,7 @@ def augment_gfa_device_native(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 8,  # batches between checkpoints
     resume: bool = False,
+    threads: Optional[int] = None,
     _stop_after: Optional[int] = None,  # test hook: simulate interruption
 ) -> CoverageCounts:
     """Augment with the native parser feeding the device scatter-add.
@@ -563,6 +564,9 @@ def augment_gfa_device_native(
     With ``mesh`` the batches are sharded over its devices (``device`` is
     then ignored) and checkpoints hold the reduced vector, so a checkpoint
     carries between mesh shapes and to a single device.
+
+    ``threads`` bounds the native parse's threads (``None``: every CPU the
+    process may run on); the batches are the same whatever it is.
 
     Raises :class:`NativeFeedUnavailable` if the native engine cannot serve
     the graph; callers may then use :func:`augment_gfa_device`.
@@ -591,7 +595,7 @@ def augment_gfa_device_native(
 
         print("Augmentation by GAF alignments (native parse -> device)", file=log)
         with trace.span("native.stream"):
-            sess = eng.slots_begin(gaf_path, start_offset, -1, mapq_thr)
+            sess = eng.slots_begin(gaf_path, start_offset, -1, mapq_thr, threads=threads)
             end_pos = start_offset
             try:
                 batches = 0

@@ -65,8 +65,9 @@ struct Engine {
   // slot-stream mode (the TPU device-engine feed): instead of accumulating
   // host-side, every count contribution is appended to slot_stream as a
   // flat int32 slot index; the device scatter-adds the stream and the final
-  // counts are copied back via gafcov_counts_set before emission. counts[]
-  // then serves only as the first-seen flag for hist slots. seen_pos /
+  // counts are copied back via gafcov_counts_set before emission. The
+  // session's master engine keeps the first-seen flags for hist slots in
+  // counts[], which the pieces of its waves read (wave_seen). seen_pos /
   // novel_pos record the byte offset of each first sighting so multi-
   // process shards can reconstruct the global file order (the contract of
   // parallel/distributed.py::_merge_sidecars).
@@ -75,12 +76,17 @@ struct Engine {
   std::vector<int64_t> seen_pos;      // aligned with seen_order
   std::unordered_map<uint64_t, int64_t> novel_pos;
   int64_t cur_pos = -1;               // byte offset of the current record
+  // a piece of a parallel wave of the slot session (gafcov_slots_next): the
+  // master's seen flags, only read while the wave runs; seen_bits filters
+  // this piece's own first sightings, which the master takes in piece order
+  const int32_t *wave_seen = nullptr;
 
   // CSR over the sorted edge table: edge_key's (src<<32|dst) sort order IS
   // grouped-by-src order, so csr_off[src]..csr_off[src+1] indexes the slot
   // range of src's out-edges — O(out-degree) lookup, 2 cache lines, instead
   // of a 17-level binary search over the whole table
   std::vector<int64_t> csr_off;       // size n_nodes+1
+  const int64_t *csr = nullptr;       // csr_off's data, or a master's (clones)
 
   std::unordered_map<uint64_t, int32_t> novel;  // packed idx pair -> count
   std::vector<uint64_t> novel_order;
@@ -118,7 +124,7 @@ struct Engine {
 
   int64_t edge_slot(uint64_t key) const {
     int64_t src = (int64_t)(key >> 32);
-    for (int64_t i = csr_off[src], e = csr_off[src + 1]; i < e; ++i)
+    for (int64_t i = csr[src], e = csr[src + 1]; i < e; ++i)
       if (edge_key[i] == key) return i;
     return -1;
   }
@@ -128,6 +134,7 @@ struct Engine {
     for (int64_t i = 0; i < n_edges; ++i)
       csr_off[(edge_key[i] >> 32) + 1]++;
     for (int64_t i = 0; i < n_nodes; ++i) csr_off[i + 1] += csr_off[i];
+    csr = csr_off.data();
   }
 
   // --- binned accumulation (large-graph stats mode) -----------------------
@@ -221,8 +228,8 @@ struct Engine {
 
   void bump_hist(int64_t slot) {
     if (collect_slots) {
-      if (counts[slot] == 0) {  // counts is a seen-flag only in this mode
-        counts[slot] = 1;
+      // a piece of a wave: a candidate first sighting, once a piece
+      if (wave_seen[slot] == 0 && seen_mark(slot)) {
         seen_order.push_back(slot);
         seen_pos.push_back(cur_pos);
       }
@@ -563,15 +570,25 @@ void process_line(Engine &E, const char *line, const char *lend, int mapq_thr,
   }
 }
 
-// process every line in [begin, end); returns line count
-int64_t process_range(Engine &E, const char *begin, const char *end,
-                      int mapq_thr, double max_dv) {
+// the next line start at or after guess (end if none): where a range is cut
+// for threads
+inline const char *line_cut(const char *guess, const char *end) {
+  if (guess >= end) return end;
+  const char *nl = (const char *)memchr(guess, '\n', end - guess);
+  return nl ? nl + 1 : end;
+}
+
+// process every line in [begin, end) of the mapping at data (cur_pos is a
+// line's offset in it); returns the records (non-blank lines)
+int64_t process_range(Engine &E, const char *data, const char *begin,
+                      const char *end, int mapq_thr, double max_dv) {
   int64_t lines = 0;
   const char *p = begin;
   while (p < end) {
     const char *nl = (const char *)memchr(p, '\n', end - p);
     const char *le = nl ? nl : end;
     const char *ls = p;
+    E.cur_pos = ls - data;
     while (le > ls && (le[-1] == '\r' || le[-1] == ' ')) --le;
     if (le > ls) {
       process_line(E, ls, le, mapq_thr, max_dv);
@@ -583,7 +600,8 @@ int64_t process_range(Engine &E, const char *begin, const char *end,
   return lines;
 }
 
-Engine *clone_config(const Engine &E) {
+// a new engine on E's graph tables, which it shares and only reads
+Engine *clone_tables(const Engine &E) {
   Engine *c = new Engine();
   c->n_nodes = E.n_nodes;
   c->ids = E.ids;
@@ -595,7 +613,12 @@ Engine *clone_config(const Engine &E) {
   c->rc_base = E.rc_base;
   c->total_slots = E.total_slots;
   c->dense_ids = E.dense_ids;
-  c->csr_off = E.csr_off;
+  c->csr = E.csr;
+  return c;
+}
+
+Engine *clone_config(const Engine &E) {
+  Engine *c = clone_tables(E);
   if (E.binned) {
     // shared-counts shard: private bins + seen bitset, drains into the
     // master's counts under its per-bin locks — no 1 GB private copy
@@ -667,11 +690,8 @@ int64_t gafcov_process_file_mt(void *h, const char *path, int mapq_thr,
   std::vector<const char *> cut(n_threads + 1);
   cut[0] = data;
   cut[n_threads] = data + size;
-  for (int t = 1; t < n_threads; ++t) {
-    const char *guess = data + (size * t) / n_threads;
-    const char *nl = (const char *)memchr(guess, '\n', data + size - guess);
-    cut[t] = nl ? nl + 1 : data + size;
-  }
+  for (int t = 1; t < n_threads; ++t)
+    cut[t] = line_cut(data + (size * t) / n_threads, data + size);
 
   std::vector<Engine *> shards(n_threads);
   std::vector<int64_t> lines(n_threads, 0);
@@ -679,7 +699,7 @@ int64_t gafcov_process_file_mt(void *h, const char *path, int mapq_thr,
   for (int t = 0; t < n_threads; ++t) {
     shards[t] = clone_config(*E);
     threads.emplace_back([&, t]() {
-      lines[t] = process_range(*shards[t], cut[t], cut[t + 1], mapq_thr, max_dv);
+      lines[t] = process_range(*shards[t], data, cut[t], cut[t + 1], mapq_thr, max_dv);
     });
   }
   int64_t total = 0;
@@ -1081,26 +1101,176 @@ void gafcov_destroy(void *h) { delete (Engine *)h; }
 // device(s). First-seen sidecars (IL/OL offsets, novel edges, byte
 // positions) stay on the engine for byte-identical emission and
 // multi-process order merging.
+//
+// The range is parsed in waves, each about one batch of slots: a wave is cut
+// into line-aligned pieces, one a thread, each parsed by an engine of its
+// own that only reads the master's seen flags, then merged into the master
+// in piece order. The merged stream, sidecars and counters are the serial
+// walk's, so every batch is too, whatever the number of pieces.
 
 namespace {
+
+// bytes a slot before the session has seen any: a 150-bp short-read record
+// is ~120 B and yields ~25 slots, so the first wave falls short of a batch
+// and a second tops it up, rather than run more than a batch ahead
+constexpr double FIRST_BYTES_PER_SLOT = 2.0;
+
+// the least bytes a piece of a wave is given: a wave of T > 1 pieces spans
+// at least T of these, and takes fewer pieces where the range has fewer
+// left, so no thread starts for a sliver of work
+constexpr int64_t MIN_PIECE = 512 << 10;
+
+// a piece's engine: the master's tables, its own stream, sidecars, counters
+// and scratch; its first sightings are filtered against the master's flags
+Engine *clone_piece(const Engine &M) {
+  Engine *c = clone_tables(M);
+  c->collect_slots = true;
+  c->wave_seen = M.counts.data();
+  // a bit set here marks a slot that the merge flags on the master, so the
+  // bits need no clearing between waves
+  c->seen_bits.assign((size_t)(M.total_slots + 63) / 64, 0);
+  return c;
+}
+
+void reset_piece(Engine &P) {
+  P.slot_stream.clear();
+  P.seen_order.clear();
+  P.seen_pos.clear();
+  P.novel.clear();
+  P.novel_order.clear();
+  P.novel_pos.clear();
+  P.rejected = P.skipped = P.accepted = 0;
+}
+
+// a piece's sidecars and counters into the master, after the join and in
+// piece order: the serial walk would have recorded the same (its slots are
+// delivered from the piece's own stream)
+void merge_piece(Engine &M, const Engine &P) {
+  for (size_t i = 0; i < P.seen_order.size(); ++i) {
+    int64_t slot = P.seen_order[i];
+    if (M.counts[slot] == 0) {  // no earlier piece or wave saw it
+      M.counts[slot] = 1;
+      M.seen_order.push_back(slot);
+      M.seen_pos.push_back(P.seen_pos[i]);
+    }
+  }
+  for (uint64_t key : P.novel_order) {
+    int32_t n = P.novel.at(key);
+    auto it = M.novel.find(key);
+    if (it == M.novel.end()) {
+      M.novel.emplace(key, n);
+      M.novel_order.push_back(key);
+      M.novel_pos.emplace(key, P.novel_pos.at(key));
+    } else {
+      it->second += n;
+    }
+  }
+  M.rejected += P.rejected;
+  M.skipped += P.skipped;
+  M.accepted += P.accepted;
+}
+
 struct SlotSession {
   Engine *E;
   char *data = nullptr;
   size_t map_size = 0;
-  const char *p = nullptr;
+  const char *p = nullptr;  // the end of the last merged wave
   const char *end = nullptr;
   int mapq_thr;
   double max_dv;
-  // totals of the session (gafcov_slots_stats): nanoseconds in the line
-  // loop and in the hand-off, records parsed, bytes walked, slots delivered
+  int threads = 1;  // the most pieces a wave may have
+  std::vector<std::unique_ptr<Engine>> pieces;  // made as the waves need them
+  // the streams slots are delivered from, in order: the master's (what the
+  // last wave left undelivered), then each of the last wave's pieces';
+  // (seg, off) is the next slot to deliver
+  std::vector<std::vector<int32_t> *> segs;
+  size_t seg = 0, off = 0;
+  int64_t pending = 0;   // parsed, not delivered
+  int64_t produced = 0;  // slots parsed, for the waves' bytes a slot
+  // totals of the session (gafcov_slots_stats): nanoseconds in the parse
+  // (waves and merges) and in the hand-off, records parsed, bytes walked,
+  // slots delivered, the pieces a wave, the waves, nanoseconds in merges
   int64_t parse_ns = 0, handoff_ns = 0, records = 0, bytes = 0, delivered = 0;
+  int64_t waves = 0, merge_ns = 0;
 };
+
+// parse the next span of the range, sized from the bytes a slot seen so far
+// to yield about `want` slots, in up to `threads` line-aligned pieces at once
+void run_wave(SlotSession &S, int64_t want) {
+  Engine &E = *S.E;
+  // what waits (under a batch) moves to the master's stream, as the pieces
+  // start anew
+  std::vector<int32_t> &carry = E.slot_stream;
+  if (S.seg == 0) carry.erase(carry.begin(), carry.begin() + S.off);
+  else carry.clear();
+  for (size_t k = std::max<size_t>(S.seg, 1); k < S.segs.size(); ++k)
+    carry.insert(carry.end(), S.segs[k]->begin() + (k == S.seg ? S.off : 0),
+                 S.segs[k]->end());
+  S.seg = S.off = 0;
+  double per_slot = S.produced ? (double)S.bytes / S.produced : FIRST_BYTES_PER_SLOT;
+  const char *lo = S.p;
+  int64_t left = S.end - lo;
+  int T = (int)std::max<int64_t>(1, std::min<int64_t>(S.threads, left / MIN_PIECE));
+  // a sixteenth more than asked, so that a wave rarely falls short of a batch
+  double span = std::max(want * per_slot * (17.0 / 16.0) + 1,
+                         T > 1 ? (double)(T * MIN_PIECE) : 0.0);
+  const char *hi = span >= (double)left ? S.end : line_cut(lo + (int64_t)span, S.end);
+  while ((int)S.pieces.size() < T) S.pieces.emplace_back(clone_piece(E));
+  S.segs.resize(1);
+  for (int t = 0; t < T; ++t) S.segs.push_back(&S.pieces[t]->slot_stream);
+  int64_t before = S.pending;
+  std::vector<const char *> cut(T + 1);
+  cut[0] = lo;
+  cut[T] = hi;
+  for (int t = 1; t < T; ++t) cut[t] = line_cut(lo + (hi - lo) * t / T, hi);
+  std::vector<int64_t> recs(T, 0);
+  auto piece = [&](int t) {
+    reset_piece(*S.pieces[t]);
+    recs[t] = process_range(*S.pieces[t], S.data, cut[t], cut[t + 1], S.mapq_thr, S.max_dv);
+  };
+  std::vector<std::thread> workers;
+  for (int t = 1; t < T; ++t) workers.emplace_back(piece, t);
+  piece(0);
+  for (auto &w : workers) w.join();
+  int64_t t0 = mono_ns();
+  for (int t = 0; t < T; ++t) {
+    merge_piece(E, *S.pieces[t]);
+    S.records += recs[t];
+  }
+  S.merge_ns += mono_ns() - t0;
+  S.pending = 0;
+  for (auto *v : S.segs) S.pending += (int64_t)v->size();
+  S.produced += S.pending - before;
+  S.bytes += hi - lo;
+  S.p = hi;
+  S.waves++;
+}
+
+// up to cap slots from the front of what is parsed and not delivered
+int64_t deliver(SlotSession &S, int32_t *buf, int64_t cap) {
+  int64_t n = 0;
+  while (n < cap && S.seg < S.segs.size()) {
+    const std::vector<int32_t> &v = *S.segs[S.seg];
+    size_t take = std::min<size_t>(v.size() - S.off, (size_t)(cap - n));
+    memcpy(buf + n, v.data() + S.off, take * sizeof(int32_t));
+    n += (int64_t)take;
+    S.off += take;
+    if (S.off == v.size()) {
+      S.seg++;
+      S.off = 0;
+    }
+  }
+  S.pending -= n;
+  S.delivered += n;
+  return n;
+}
 }  // namespace
 
-// lo/hi: byte range to process (hi < 0 means EOF); returns nullptr on error
-// or when the slot space does not fit the int32 stream
+// lo/hi: byte range to process (hi < 0 means EOF); threads: the most pieces
+// a wave may have; returns nullptr on error or when the slot space does not
+// fit the int32 stream
 void *gafcov_slots_begin(void *h, const char *path, int64_t lo, int64_t hi,
-                         int mapq_thr, double max_dv) {
+                         int mapq_thr, double max_dv, int threads) {
   Engine *E = (Engine *)h;
   if (E->total_slots > INT32_MAX) return nullptr;
   int fd = open(path, O_RDONLY);
@@ -1132,45 +1302,28 @@ void *gafcov_slots_begin(void *h, const char *path, int64_t lo, int64_t hi,
     S->end = S->data + hi;
   }
   close(fd);
-  E->collect_slots = true;
+  S->threads = std::max(threads, 1);
+  S->segs.push_back(&E->slot_stream);
   return S;
 }
 
 // Fill buf with up to cap slot indices; returns the count (0 = EOF drained).
-// Counters / seen sidecars keep accumulating on the engine as lines parse.
+// Parses a wave whenever fewer than cap slots wait, so it runs at most one
+// wave ahead; counters and seen sidecars reach the engine wave by wave.
 int64_t gafcov_slots_next(void *s, int32_t *buf, int64_t cap) {
   SlotSession *S = (SlotSession *)s;
-  Engine &E = *S->E;
   int64_t t0 = mono_ns();
-  const char *p0 = S->p;
-  while ((int64_t)E.slot_stream.size() < cap && S->p < S->end) {
-    const char *nl = (const char *)memchr(S->p, '\n', S->end - S->p);
-    const char *le = nl ? nl : S->end;
-    const char *ls = S->p;
-    E.cur_pos = ls - S->data;
-    while (le > ls && (le[-1] == '\r' || le[-1] == ' ')) --le;
-    if (le > ls) {
-      process_line(E, ls, le, S->mapq_thr, S->max_dv);
-      ++S->records;
-    }
-    S->p = nl ? nl + 1 : S->end;
-  }
-  S->bytes += S->p - p0;
+  while (S->pending < cap && S->p < S->end) run_wave(*S, cap - S->pending);
   int64_t t1 = mono_ns();
-  int64_t n = (int64_t)E.slot_stream.size();
-  if (n > cap) n = cap;
-  if (n) {
-    memcpy(buf, E.slot_stream.data(), n * sizeof(int32_t));
-    E.slot_stream.erase(E.slot_stream.begin(), E.slot_stream.begin() + n);
-  }
-  S->delivered += n;
+  int64_t n = deliver(*S, buf, cap);
   S->parse_ns += t1 - t0;
   S->handoff_ns += mono_ns() - t1;
   return n;
 }
 
-// current parse position (absolute byte offset) — a valid resume point
-// once the pending residual has been drained (gafcov_slots_take_pending)
+// current parse position (absolute byte offset, the end of the last merged
+// wave) — a valid resume point once the pending residual has been drained
+// (gafcov_slots_take_pending)
 int64_t gafcov_slots_pos(void *s) {
   SlotSession *S = (SlotSession *)s;
   return S->data ? (int64_t)(S->p - S->data) : 0;
@@ -1180,30 +1333,24 @@ int64_t gafcov_slots_pos(void *s) {
 // the residual a checkpoint must flush so that (pos, counts) is consistent
 int64_t gafcov_slots_take_pending(void *s, int32_t *buf, int64_t cap) {
   SlotSession *S = (SlotSession *)s;
-  Engine &E = *S->E;
   int64_t t0 = mono_ns();
-  int64_t n = (int64_t)E.slot_stream.size();
-  if (n > cap) n = cap;
-  if (n) {
-    memcpy(buf, E.slot_stream.data(), n * sizeof(int32_t));
-    E.slot_stream.erase(E.slot_stream.begin(), E.slot_stream.begin() + n);
-  }
-  S->delivered += n;
+  int64_t n = deliver(*S, buf, cap);
   S->handoff_ns += mono_ns() - t0;
   return n;
 }
 
 // the session's totals so far: [parse_ns, handoff_ns, records, bytes,
-// delivered]; read them before gafcov_slots_end
-void gafcov_slots_stats(void *s, int64_t *out5) {
+// delivered, threads (the most pieces a wave had), waves, merge_ns]; read
+// them before gafcov_slots_end
+void gafcov_slots_stats(void *s, int64_t *out8) {
   SlotSession *S = (SlotSession *)s;
-  int64_t v[5] = {S->parse_ns, S->handoff_ns, S->records, S->bytes, S->delivered};
-  memcpy(out5, v, sizeof v);
+  int64_t v[8] = {S->parse_ns, S->handoff_ns, S->records, S->bytes, S->delivered,
+                  std::max<int64_t>(1, (int64_t)S->pieces.size()), S->waves, S->merge_ns};
+  memcpy(out8, v, sizeof v);
 }
 
 void gafcov_slots_end(void *s) {
   SlotSession *S = (SlotSession *)s;
-  S->E->collect_slots = false;
   S->E->slot_stream.clear();
   S->E->slot_stream.shrink_to_fit();
   if (S->data) munmap(S->data, S->map_size);

@@ -28,7 +28,7 @@ _lib = None
 
 # the slot session's totals (gafcov_slots_stats), as trace counters
 SLOT_STATS = ("slots.parse_ns", "slots.handoff_ns", "slots.records", "slots.bytes",
-              "slots.delivered")
+              "slots.delivered", "slots.threads", "slots.waves", "slots.merge_ns")
 # an emission's phases, in the order of gafcov_emit_stats's stamps, and its sizes
 EMIT_PHASES = ("emit.bin", "emit.slurp", "emit.format", "emit.write", "emit.novel")
 EMIT_COUNTS = ("emit.chunks", "emit.threads", "emit.bytes_out")
@@ -89,7 +89,7 @@ def _load():
     lib.gafcov_force_bins.argtypes = [ctypes.c_void_p]
     lib.gafcov_slots_begin.restype = ctypes.c_void_p
     lib.gafcov_slots_begin.argtypes = [
-        ctypes.c_void_p, ctypes.c_char_p, i64, i64, ctypes.c_int, f64,
+        ctypes.c_void_p, ctypes.c_char_p, i64, i64, ctypes.c_int, f64, ctypes.c_int,
     ]
     lib.gafcov_slots_next.restype = i64
     lib.gafcov_slots_next.argtypes = [ctypes.c_void_p, P(i32), i64]
@@ -257,6 +257,12 @@ def scan_gfa_structure(gfa_path: str):
         lib.gfa_scan_free(h)
 
 
+def host_threads(share: int = 1) -> int:
+    """The CPUs this process may run on, divided among ``share`` processes
+    of one host: the threads a native parse takes when none are named."""
+    return max(1, len(os.sched_getaffinity(0)) // max(share, 1))
+
+
 def _ptr(arr: np.ndarray, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
 
@@ -320,10 +326,12 @@ class NativeCoverage:
         gaf_path: str,
         mapq_thr: int = 20,
         max_dv: float = 0.1,
-        threads: int = 1,
+        threads: Optional[int] = 1,
     ) -> int:
+        """Count a whole GAF on ``threads`` threads (``None``: host_threads())."""
         from pantas_tpu_torch.io.xopen import materialized
 
+        threads = host_threads() if threads is None else threads
         with materialized(gaf_path) as plain:
             if threads > 1:
                 n = self.lib.gafcov_process_file_mt(
@@ -350,8 +358,15 @@ class NativeCoverage:
         hi: int = -1,
         mapq_thr: int = 20,
         max_dv: float = 0.1,
+        threads: Optional[int] = None,
     ):
         """Open a slot-stream parse session over a GAF byte range.
+
+        The session parses in waves of about one batch, each cut into up to
+        ``threads`` line-aligned pieces parsed at once (``None``:
+        host_threads()); a wave takes fewer pieces where the range has less
+        than half a MiB a piece left. The batches are the one-thread walk's
+        whatever the count.
 
         Compressed inputs inflate once into scratch (xopen.materialized
         semantics); byte offsets (``lo``/``hi``/``slots_pos``) always
@@ -364,7 +379,8 @@ class NativeCoverage:
 
         with materialized(gaf_path) as plain:
             s = self.lib.gafcov_slots_begin(
-                self.handle, str(plain).encode(), lo, hi, mapq_thr, max_dv
+                self.handle, str(plain).encode(), lo, hi, mapq_thr, max_dv,
+                host_threads() if threads is None else threads,
             )
         if not s:
             raise IOError(f"cannot open slot session on {gaf_path}")
@@ -525,7 +541,7 @@ def augment_gfa_native(
     mapq_thr: int = 20,
     log=sys.stderr,
     tensors: Optional[GraphTensors] = None,
-    threads: int = 1,
+    threads: Optional[int] = 1,
 ) -> CoverageCounts:
     """Augment stage with the native engine (byte-identical output)."""
     print("Read GFA (tensorize)", file=log)

@@ -227,10 +227,11 @@ def _feed_python(gaf_path, lo, hi, tensors, enc, dev, mapq_thr, flush_every) -> 
         flush()
 
 
-def _feed_native(eng, gaf_path, lo, hi, dev, mapq_thr, flush_every) -> None:
-    """The native slot session over ``[lo, hi)`` into ``dev``; its sidecars
-    carry absolute byte offsets for the global first-seen order merge."""
-    sess = eng.slots_begin(gaf_path, lo, hi, mapq_thr)
+def _feed_native(eng, gaf_path, lo, hi, dev, mapq_thr, flush_every, threads) -> None:
+    """The native slot session over ``[lo, hi)`` into ``dev``, parsing with
+    ``threads``; its sidecars carry absolute byte offsets for the global
+    first-seen order merge."""
+    sess = eng.slots_begin(gaf_path, lo, hi, mapq_thr, threads=threads)
     try:
         while True:
             buf = np.empty(flush_every, dtype=np.int32)
@@ -283,6 +284,7 @@ def augment_gfa_distributed(
     from pantas_tpu_torch.coverage.host import emit_augmented_gfa
     from pantas_tpu_torch.graph.compiler import compile_gfa
     from pantas_tpu_torch.io.xopen import is_compressed, open_stage_output
+    from pantas_tpu_torch.native.gafcov import host_threads
 
     log = sys.stderr if log is None else log
     if is_compressed(gaf_path):
@@ -331,7 +333,10 @@ def augment_gfa_distributed(
         except NativeFeedUnavailable as e:  # non-canonical ids / no toolchain
             print(f"[augment-dist] python feed ({e})", file=log)
         if native_eng is not None:
-            _feed_native(native_eng, gaf_path, lo, hi, dev, mapq_thr, flush_every)
+            # the host's CPUs divided among the ranks it runs
+            share = sum(r[0] == ranks[proc_id][0] for r in ranks)
+            _feed_native(native_eng, gaf_path, lo, hi, dev, mapq_thr, flush_every,
+                         host_threads(share))
         else:
             _feed_python(gaf_path, lo, hi, tensors, enc, dev, mapq_thr, flush_every)
 

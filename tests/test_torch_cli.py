@@ -32,6 +32,30 @@ def test_device_augment_cli_matches_host_engine(tmp_path, engine):
     assert "fallback" not in proc.stderr
 
 
+@pytest.mark.parametrize("argv, want", [([], None), (["-t", "1"], 1), (["-t", "3"], 3)])
+def test_augment_threads_bound_both_native_parses(tmp_path, monkeypatch, argv, want):
+    """``-t`` bounds the native parse of the native and the device engine
+    alike; left out, both take every CPU the process may run on."""
+    from pantas_tpu_torch.native import gafcov
+
+    asked = []
+    for name in ("process_file", "slots_begin"):
+        def record(self, *a, _original=getattr(gafcov.NativeCoverage, name), **kw):
+            asked.append(kw.get("threads"))
+            return _original(self, *a, **kw)
+
+        monkeypatch.setattr(gafcov.NativeCoverage, name, record)
+    gfa, gaf = write_micro(tmp_path)
+    outs = []
+    for engine in ("native", "device"):
+        out = tmp_path / f"{engine}.gfa"
+        assert cli.main(["augment", "--engine", engine, "--device", "cpu", *argv,
+                         str(gaf), str(gfa), "-o", str(out)]) == 0
+        outs.append(out.read_bytes())
+    assert asked == [want, want]
+    assert outs[0] == outs[1]
+
+
 def test_unknown_subcommand_prints_the_usage_and_exits_1(capsys):
     assert cli.main(["no-such-subcommand", "x"]) == 1
     captured = capsys.readouterr()

@@ -70,12 +70,12 @@ def inputs(tmp_path):
     return gfa, big
 
 
-def _augment(gaf, gfa, out_path, **kw):
+def _augment(gaf, gfa, out_path, flush_every=FLUSH, **kw):
     """The device augment on the CPU into a file; returns (bytes, log)."""
     log = io.StringIO()
     with open(out_path, "w") as out:
         port.augment_gfa_device_native(str(gaf), str(gfa), out=out, device="cpu",
-                                       flush_every=FLUSH, log=log, **kw)
+                                       flush_every=flush_every, log=log, **kw)
     return out_path.read_bytes(), log.getvalue()
 
 
@@ -135,7 +135,8 @@ def test_spans_nest_where_the_work_happens(inputs, tmp_path):
     assert chain == ["device.add_slots", "native.stream", "stage.augment"]
 
 
-def test_counts_agree_with_the_work(inputs, tmp_path, monkeypatch):
+def _counts_agree_with_the_work(inputs, tmp_path, monkeypatch, flush=FLUSH, **kw) -> dict:
+    """One traced augment; its counters against the work it did."""
     gfa, gaf = inputs
     read_back = []
     original = port.DeviceCoverage._read_back
@@ -147,7 +148,8 @@ def test_counts_agree_with_the_work(inputs, tmp_path, monkeypatch):
 
     monkeypatch.setattr(port.DeviceCoverage, "_read_back", keep)
     trace.enable()
-    out, log = _augment(gaf, gfa, tmp_path / "on.gfa")
+    out, log = _augment(gaf, gfa, tmp_path / "on.gfa", flush_every=flush, **kw)
+    assert out == _host_bytes(gaf, gfa)
     snap = trace.snapshot()
     c = snap["counters"]
     batches = int(log.split("(batches: ")[1].split(")")[0])
@@ -158,11 +160,32 @@ def test_counts_agree_with_the_work(inputs, tmp_path, monkeypatch):
     assert c["slots.records"] == len(records)
     assert c["slots.bytes"] == gaf.stat().st_size
     assert c["slots.delivered"] == sum(read_back) > 0
-    assert c["device.h2d_bytes"] == 4 * FLUSH * batches
-    assert c["device.pad_slots"] == FLUSH * batches - c["slots.delivered"]
+    assert c["device.h2d_bytes"] == 4 * flush * batches
+    assert c["device.pad_slots"] == flush * batches - c["slots.delivered"]
     assert c["emit.bytes_out"] == len(out)
     assert c["slots.parse_ns"] > 0 and c["slots.handoff_ns"] > 0
+    assert c["slots.threads"] >= 1 and c["slots.waves"] >= batches
+    assert 0 < c["slots.merge_ns"] <= c["slots.parse_ns"]
     assert c["kernels.launches"] == 0  # the plain versions run on the CPU
+    return c
+
+
+def test_counts_agree_with_the_work(inputs, tmp_path, monkeypatch):
+    c = _counts_agree_with_the_work(inputs, tmp_path, monkeypatch)
+    # a GAF under a MiB is too short for two pieces a wave
+    assert c["slots.threads"] == 1
+
+
+def test_counts_agree_with_the_work_in_parallel_waves(tmp_path, monkeypatch):
+    """Three threads a wave over a GAF of a few MiB, in batches that span
+    more than three pieces: the same counts, the threads the session used,
+    and the time its merges took."""
+    gfa, gaf = write_micro(tmp_path)
+    big = tmp_path / "big.gaf"
+    big.write_text(open(gaf).read() * COPIES * 100)
+    c = _counts_agree_with_the_work((gfa, big), tmp_path, monkeypatch, flush=1 << 18,
+                                    threads=3)
+    assert c["slots.threads"] == 3
 
 
 @pytest.mark.parametrize("env, threads", [({}, 1),
