@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from pantas_tpu_torch import backend
+from pantas_tpu_torch import backend, trace
 from pantas_tpu_torch.events.caller import (
     CallOptions,
     Jct,
@@ -41,8 +41,15 @@ from pantas_tpu_torch.events.caller import (
 )
 
 # candidates evaluated in this process, keyed (finder, device type);
-# chip_smoke.py reads them to prove where each finder's evaluation ran
+# chip_smoke.py reads them to prove where each finder's evaluation ran, and
+# trace.snapshot() reports them as its counters ``call.candidates.<finder>``
 EVALS: Counter = Counter()
+
+
+def finder_label(finder: str) -> str:
+    """A finder's name in spans and counters: ``annotated_es`` -> ``es``,
+    ``novel_es`` stays ``novel_es``."""
+    return finder.removeprefix("annotated_")
 
 
 def _bitset_matrix(sets: Sequence[Set[int]], vocab: int) -> np.ndarray:
@@ -117,20 +124,25 @@ def _eval_match(match, tables, index_arrays, devices=None) -> np.ndarray:
     N contiguous shards in order (``torch.tensor_split``; no padding is
     needed), and the hits come back in candidate order. Returns a host bool
     array, one entry per candidate. ``EVALS`` counts each device's
-    candidates under ``match``'s name without its ``match_`` prefix.
+    candidates under ``match``'s name without its ``match_`` prefix. The
+    span ``call.<finder>.match`` holds the copies, the ops and the read-back;
+    the counter ``call.h2d_bytes`` the bytes handed to the devices.
     """
     devices = backend.default_devices(devices)
     finder = match.__name__.removeprefix("match_")
-    index = [torch.from_numpy(np.asarray(v, dtype=np.int32)) for v in index_arrays]
-    shards = zip(*(torch.tensor_split(v, len(devices)) for v in index))
-    hits = []
-    for dev, shard in zip(devices, shards):
-        if not shard[0].numel():
-            continue  # fewer candidates than devices
-        hits.append(match(*(_to_device(t, dev) for t in tables), *(v.to(dev) for v in shard)))
-        EVALS[(finder, dev.type)] += shard[0].numel()
-    # launched on every device first, read back after
-    return np.concatenate([h.cpu().numpy() for h in hits]).astype(bool)
+    with trace.span(f"call.{finder_label(finder)}.match"):
+        index = [torch.from_numpy(np.asarray(v, dtype=np.int32)) for v in index_arrays]
+        shards = zip(*(torch.tensor_split(v, len(devices)) for v in index))
+        table_bytes = sum(t.nbytes for t in tables)
+        hits = []
+        for dev, shard in zip(devices, shards):
+            if not shard[0].numel():
+                continue  # fewer candidates than devices
+            hits.append(match(*(_to_device(t, dev) for t in tables), *(v.to(dev) for v in shard)))
+            EVALS[(finder, dev.type)] += shard[0].numel()
+            trace.add("call.h2d_bytes", table_bytes + sum(4 * v.numel() for v in shard))
+        # launched on every device first, read back after
+        return np.concatenate([h.cpu().numpy() for h in hits]).astype(bool)
 
 
 def _any(x: torch.Tensor) -> torch.Tensor:
@@ -275,7 +287,8 @@ def find_annotated_es(
 ) -> Set[Tuple[Jct, Jct, Jct]]:
     """All (J, j1, j2) annotated-ES triples, evaluated on ``devices``."""
     devices = backend.default_devices(devices)
-    cands, tables, index = _annotated_es_candidates(graph, t2g, rca)
+    with trace.span("call.es.candidates"):
+        cands, tables, index = _annotated_es_candidates(graph, t2g, rca)
     if not cands:
         return set()
     hits = _eval_match(match_annotated_es, tables, index, devices)
@@ -421,7 +434,8 @@ def find_annotated_ss(
     whose counts are the host caller's row multiplicities (one row per
     exon-continuation neighbor ``n`` that fires the pattern)."""
     devices = backend.default_devices(devices)
-    keys, tables, index = _annotated_ss_candidates(graph, t2g, genestrand, rca)
+    with trace.span("call.ss.candidates"):
+        keys, tables, index = _annotated_ss_candidates(graph, t2g, genestrand, rca)
     if not keys:
         return Counter()
     hits = _eval_match(match_annotated_ss, tables, index, devices)
@@ -480,7 +494,8 @@ def find_novel_es(
     """Novel-ES (J, j1, j2) triples: the flanks j1 = (J.head, n) and
     j2 = (q, J.tail) share a transcript."""
     devices = backend.default_devices(devices)
-    cands, tables, index = _novel_es_candidates(graph, t2g, rca)
+    with trace.span("call.novel_es.candidates"):
+        cands, tables, index = _novel_es_candidates(graph, t2g, rca)
     if not cands:
         return set()
     hits = _eval_match(match_novel_es, tables, index, devices)
@@ -558,7 +573,8 @@ def find_annotated_ir(
     ``product(out(J.head), inc(J.tail))`` whose exons meet the junction's
     common gene-filtered exons, as the host caller's loop breaks on it."""
     devices = backend.default_devices(devices)
-    cands, tables, index = _annotated_ir_candidates(graph, t2g, rca)
+    with trace.span("call.ir.candidates"):
+        cands, tables, index = _annotated_ir_candidates(graph, t2g, rca)
     if not cands:
         return {}
     hits = _eval_match(match_annotated_ir, tables, index, devices)
@@ -671,7 +687,8 @@ def find_novel_ss_exonic(
     """Novel exonic A3/A5 hit keys ``(J, block, node)``: per candidate,
     ``exset(node) & spliced_exons[J, block] & labels(cap[J])`` is not empty."""
     devices = backend.default_devices(devices)
-    cands, tables, index = _novel_ss_exonic_candidates(graph, t2g, opts)
+    with trace.span("call.novel_ss_exonic.candidates"):
+        cands, tables, index = _novel_ss_exonic_candidates(graph, t2g, opts)
     if not cands:
         return set()
     hits = _eval_match(match_novel_ss_exonic, tables, index, devices)
@@ -712,7 +729,8 @@ def find_novel_ce(
     product pairs with ``j1.tail <= j2.head`` (lexicographic), as a rank
     compare over the sorted node ids."""
     devices = backend.default_devices(devices)
-    cands, tables, index = _novel_ce_candidates(graph, opts)
+    with trace.span("call.novel_ce.candidates"):
+        cands, tables, index = _novel_ce_candidates(graph, opts)
     if not cands:
         return {}
     hits = _eval_match(match_novel_ce, tables, index, devices)
@@ -739,6 +757,11 @@ def call_events_device(
     pieces (intron subpath walks, intronic-SS frontier search, novel IR)
     stay on the reference-exact host enumerator, consuming the device hit
     oracles. Emits the host caller's row MULTISET; row order may differ.
+
+    Each part of the work (the loads, then each finder with its rows) runs
+    inside a root span ``stage.call`` of its own, and lists its rows before
+    they are yielded, so a span ends where its work ends and not where the
+    consumer resumes; the counters ``call.rows.<event type>`` count the rows.
     """
     import sys
     from dataclasses import replace
@@ -754,9 +777,12 @@ def call_events_device(
 
     devices = backend.default_devices(devices)
     log = sys.stderr if log is None else log
-    if graph is None:
-        graph = SplicingGraph.from_gfa(gfa_path)
-    t2g, genestrand, genechr = parse_transcript_maps(gtf_path)
+    with trace.span("stage.call"):
+        if graph is None:
+            with trace.span("call.graph_load"):
+                graph = SplicingGraph.from_gfa(gfa_path)
+        with trace.span("call.gtf"):
+            t2g, genestrand, genechr = parse_transcript_maps(gtf_path)
     yield CSV_HEADER
 
     # QUIRK parity: the reference's --junction filter compares a broken
@@ -767,114 +793,137 @@ def call_events_device(
     )
     if not opts.no_annotated and not annotated_filtered:
         if "ES" in opts.events:
-            for J, j1, j2 in sorted(find_annotated_es(graph, t2g, rca=opts.rca, devices=devices)):
-                _ht = graph.jn_keys(J)
-                inclusion = (
-                    set(graph.jn_keys(j1)) & set(graph.jn_keys(j2))
-                ) - set(_ht)
-                gene = next(iter(_genes_of_hts(_ht, t2g)))
-                yield _row(
-                    "ES",
-                    "annotated",
-                    genechr[gene],
-                    gene,
-                    genestrand[gene],
-                    "|".join(graph.link[J].jn),
-                    "|".join(
-                        x for x in graph.link[j1].jn
-                        if transcript_of_label(x) in inclusion
-                    ),
-                    "|".join(
-                        x for x in graph.link[j2].jn
-                        if transcript_of_label(x) in inclusion
-                    ),
-                    ">".join(J),
-                    graph.rc(J),
-                    ">".join(j1),
-                    graph.rc(j1),
-                    ">".join(j2),
-                    graph.rc(j2),
-                )
+            with trace.span("stage.call"), trace.span("call.es"):
+                hits = sorted(find_annotated_es(graph, t2g, rca=opts.rca, devices=devices))
+                rows = []
+                with trace.span("call.rows"):
+                    for J, j1, j2 in hits:
+                        _ht = graph.jn_keys(J)
+                        inclusion = (
+                            set(graph.jn_keys(j1)) & set(graph.jn_keys(j2))
+                        ) - set(_ht)
+                        gene = next(iter(_genes_of_hts(_ht, t2g)))
+                        rows.append(_row(
+                            "ES",
+                            "annotated",
+                            genechr[gene],
+                            gene,
+                            genestrand[gene],
+                            "|".join(graph.link[J].jn),
+                            "|".join(
+                                x for x in graph.link[j1].jn
+                                if transcript_of_label(x) in inclusion
+                            ),
+                            "|".join(
+                                x for x in graph.link[j2].jn
+                                if transcript_of_label(x) in inclusion
+                            ),
+                            ">".join(J),
+                            graph.rc(J),
+                            ">".join(j1),
+                            graph.rc(j1),
+                            ">".join(j2),
+                            graph.rc(j2),
+                        ))
+            yield from _counted(rows)
         if "SS" in opts.events:
-            hits = find_annotated_ss(graph, t2g, genestrand, rca=opts.rca, devices=devices)
-            for (etype, J, jo), count in sorted(hits.items()):
-                gene = next(iter(_genes_of_hts(graph.jn_keys(J), t2g)))
-                row = _row(
-                    etype,
-                    "annotated",
-                    genechr[gene],
-                    gene,
-                    genestrand[gene],
-                    "|".join(graph.link[J].jn),
-                    "|".join(graph.link[jo].jn),
-                    ".",
-                    ">".join(J),
-                    graph.rc(J),
-                    ">".join(jo),
-                    graph.rc(jo),
-                    ".",
-                    ".",
-                )
-                for _ in range(count):
-                    yield row
+            with trace.span("stage.call"), trace.span("call.ss"):
+                hits = find_annotated_ss(graph, t2g, genestrand, rca=opts.rca, devices=devices)
+                rows = []
+                with trace.span("call.rows"):
+                    for (etype, J, jo), count in sorted(hits.items()):
+                        gene = next(iter(_genes_of_hts(graph.jn_keys(J), t2g)))
+                        row = _row(
+                            etype,
+                            "annotated",
+                            genechr[gene],
+                            gene,
+                            genestrand[gene],
+                            "|".join(graph.link[J].jn),
+                            "|".join(graph.link[jo].jn),
+                            ".",
+                            ">".join(J),
+                            graph.rc(J),
+                            ">".join(jo),
+                            graph.rc(jo),
+                            ".",
+                            ".",
+                        )
+                        rows += [row] * count
+            yield from _counted(rows)
         if "IR" in opts.events:
-            ir_opts = replace(opts, events=["IR"])
-            yield from _call_annotated(
-                graph, t2g, genestrand, genechr, ir_opts, log,
-                ir_oracle=find_annotated_ir(graph, t2g, rca=opts.rca, devices=devices),
-            )
+            with trace.span("stage.call"), trace.span("call.ir"):
+                ir_oracle = find_annotated_ir(graph, t2g, rca=opts.rca, devices=devices)
+                with trace.span("call.rows"):
+                    rows = list(_call_annotated(
+                        graph, t2g, genestrand, genechr, replace(opts, events=["IR"]), log,
+                        ir_oracle=ir_oracle,
+                    ))
+            yield from _counted(rows)
     if opts.novel:
-        if "ES" in opts.events:
-            # the novel-junction --junction filter WORKS in the reference
-            # (unlike the annotated pass's broken literal) — apply it here
-            hits = find_novel_es(graph, t2g, rca=opts.rca, devices=devices)
-            if opts.junction is not None:
-                hits = {
-                    c for c in hits if f"{c[0][0]}-{c[0][1]}" == opts.junction
-                }
-            for J, j1, j2 in sorted(hits):
-                inclusion = graph.jn_keys(j1) & graph.jn_keys(j2)
-                _genes = set(t2g[t] for t in inclusion)
-                if len(_genes) > 1:
-                    print("Skipping ES due to multiple genes", file=log)
-                    continue
-                gene = next(iter(_genes))
-                yield _row(
-                    "ES",
-                    "novel",
-                    genechr[gene],
-                    gene,
-                    genestrand[gene],
-                    "?",
-                    "|".join(
-                        x for x in graph.link[j1].jn
-                        if transcript_of_label(x) in inclusion
-                    ),
-                    "|".join(
-                        x for x in graph.link[j2].jn
-                        if transcript_of_label(x) in inclusion
-                    ),
-                    ">".join(J),
-                    graph.rc(J),
-                    ">".join(j1),
-                    graph.rc(j1),
-                    ">".join(j2),
-                    graph.rc(j2),
-                )
-        ss_oracle = (
-            find_novel_ss_exonic(graph, t2g, opts, devices=devices)
-            if "SS" in opts.events
-            else None
-        )
-        ce_oracle = (
-            find_novel_ce(graph, opts, devices=devices) if "ES" in opts.events else None
-        )
-        yield from _call_novel(
-            graph, t2g, genestrand, genechr, opts, log,
-            emit_novel_es="ES" not in opts.events,
-            ss_oracle=ss_oracle,
-            ce_oracle=ce_oracle,
-        )
+        with trace.span("stage.call"):
+            rows = []
+            if "ES" in opts.events:
+                # the novel-junction --junction filter WORKS in the reference
+                # (unlike the annotated pass's broken literal) — apply it here
+                hits = find_novel_es(graph, t2g, rca=opts.rca, devices=devices)
+                if opts.junction is not None:
+                    hits = {
+                        c for c in hits if f"{c[0][0]}-{c[0][1]}" == opts.junction
+                    }
+                for J, j1, j2 in sorted(hits):
+                    inclusion = graph.jn_keys(j1) & graph.jn_keys(j2)
+                    _genes = set(t2g[t] for t in inclusion)
+                    if len(_genes) > 1:
+                        print("Skipping ES due to multiple genes", file=log)
+                        continue
+                    gene = next(iter(_genes))
+                    rows.append(_row(
+                        "ES",
+                        "novel",
+                        genechr[gene],
+                        gene,
+                        genestrand[gene],
+                        "?",
+                        "|".join(
+                            x for x in graph.link[j1].jn
+                            if transcript_of_label(x) in inclusion
+                        ),
+                        "|".join(
+                            x for x in graph.link[j2].jn
+                            if transcript_of_label(x) in inclusion
+                        ),
+                        ">".join(J),
+                        graph.rc(J),
+                        ">".join(j1),
+                        graph.rc(j1),
+                        ">".join(j2),
+                        graph.rc(j2),
+                    ))
+            ss_oracle = (
+                find_novel_ss_exonic(graph, t2g, opts, devices=devices)
+                if "SS" in opts.events
+                else None
+            )
+            ce_oracle = (
+                find_novel_ce(graph, opts, devices=devices) if "ES" in opts.events else None
+            )
+            rows += _call_novel(
+                graph, t2g, genestrand, genechr, opts, log,
+                emit_novel_es="ES" not in opts.events,
+                ss_oracle=ss_oracle,
+                ce_oracle=ce_oracle,
+            )
+        yield from _counted(rows)
+
+
+def _counted(rows: list) -> list:
+    """``rows``, counted by event type into ``call.rows.<type>`` while
+    tracing is on."""
+    if trace.enabled():
+        for etype, n in Counter(r.split(",", 1)[0] for r in rows).items():
+            trace.add(f"call.rows.{etype}", n)
+    return rows
 
 
 def host_ss_rows(gfa_path: str, gtf_path: str, rca: int = -1):

@@ -19,9 +19,10 @@ that profiler shows the spans beside the kernels and copies. Spans stamped
 inside a native call (:func:`record`) have no such twin.
 
 Nothing is written from here: :func:`snapshot` hands the spans and counters
-to the caller. Kernel launches are not counted twice: the snapshot reports
-those made since :func:`reset` from ``coverage.kernels.LAUNCHES``, the
-port's one launch counter.
+to the caller. Kernel launches and the call's candidates are not counted
+twice: the snapshot reports those since :func:`reset` from
+``coverage.kernels.LAUNCHES``, the port's one launch counter, and from
+``events.batched.EVALS``, its one count of candidates evaluated.
 
     from pantas_tpu_torch import trace
     trace.enable()
@@ -41,14 +42,28 @@ _counters: dict = {}
 _lock = threading.Lock()
 _local = threading.local()
 _launch_base = 0
+_candidate_base: dict = {}
 _profiling = None  # torch's check for a recording profiler, bound by enable()
 
 KERNELS_MODULE = "pantas_tpu_torch.coverage.kernels"
+EVENTS_MODULE = "pantas_tpu_torch.events.batched"
 
 
 def _launches() -> int:
     kernels = sys.modules.get(KERNELS_MODULE)
     return sum(kernels.LAUNCHES.values()) if kernels is not None else 0
+
+
+def _candidates() -> dict:
+    """``call.candidates.<finder>``: the candidates each finder of the call
+    has evaluated in this process, on every device."""
+    batched = sys.modules.get(EVENTS_MODULE)
+    out: dict = {}
+    if batched is not None:
+        for (finder, _device), n in batched.EVALS.items():
+            name = "call.candidates." + batched.finder_label(finder)
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def enable() -> None:
@@ -72,11 +87,12 @@ def enabled() -> bool:
 def reset() -> None:
     """Forget every span and counter; launches count from here. Call it
     between jobs: a span open across it is recorded into the old list."""
-    global _spans, _launch_base
+    global _spans, _launch_base, _candidate_base
     with _lock:
         _spans = []
         _counters.clear()
         _launch_base = _launches()
+        _candidate_base = _candidates()
 
 
 def _stack() -> list:
@@ -161,9 +177,15 @@ def add(name: str, n=1) -> None:
 
 def snapshot() -> dict:
     """``{"spans": [(name, t0, t1, parent, thread)], "counters": {...}}``;
-    the counters hold ``kernels.launches``, the launches since :func:`reset`."""
+    the counters hold ``kernels.launches``, the launches since :func:`reset`,
+    and ``call.candidates.<finder>`` for each finder that has evaluated
+    candidates since then."""
     with _lock:
         spans = [tuple(r) for r in _spans]
         counters = dict(_counters)
     counters["kernels.launches"] = _launches() - _launch_base
+    for name, n in _candidates().items():
+        n -= _candidate_base.get(name, 0)
+        if n > 0:
+            counters[name] = n
     return {"spans": spans, "counters": counters}

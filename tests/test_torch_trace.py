@@ -307,3 +307,114 @@ def test_card_readback_waits_and_launches_count(inputs, tmp_path):
     batches = _names(spans).count("device.add_slots")
     assert snap["counters"]["kernels.launches"] == batches == snap["counters"]["device.batches"]
     assert snap["counters"]["device.readback_nnz"] > 0
+
+
+# --- the device call -------------------------------------------------------
+
+FINDERS = ("es", "ss", "ir")
+# the device call's spans on the CPU, each with its parents (``call.rows``
+# closes each finder's part)
+CALL_PARENTS = {
+    "stage.call": {None},
+    "call.graph_load": {"stage.call"},
+    "call.gtf": {"stage.call"},
+    **{f"call.{f}": {"stage.call"} for f in FINDERS},
+    **{f"call.{f}.{part}": {f"call.{f}"} for f in FINDERS for part in ("candidates", "match")},
+    "call.rows": {f"call.{f}" for f in FINDERS},
+}
+NOVEL_FINDERS = ("novel_es", "novel_ss_exonic", "novel_ce")
+
+
+@pytest.fixture
+def call_inputs(tmp_path):
+    from fixtures_call import write_call_fixtures
+
+    return write_call_fixtures(tmp_path)["splice"]
+
+
+def _call(gfa, gtf, **opts) -> list:
+    from pantas_tpu_torch.events.batched import call_events_device
+    from pantas_tpu_torch.events.caller import CallOptions
+
+    return list(call_events_device(gfa, gtf, CallOptions(rca=0, **opts), log=io.StringIO(),
+                                   devices=["cpu"]))
+
+
+@pytest.mark.parametrize("novel", [False, True], ids=["annotated", "novel"])
+def test_call_spans_nest_where_the_work_happens(call_inputs, novel):
+    """Every span of the device call is there, nested where its work is, and
+    the rows are those of an untraced call, in the same order."""
+    off = _call(*call_inputs, novel=novel)
+    trace.enable()
+    on = _call(*call_inputs, novel=novel)
+    spans = trace.snapshot()["spans"]
+    assert on == off and len(on) > 1
+    parents = dict(CALL_PARENTS)
+    if novel:  # the novel finders run under the root
+        for f in NOVEL_FINDERS:
+            parents[f"call.{f}.candidates"] = parents[f"call.{f}.match"] = {"stage.call"}
+    assert set(_names(spans)) == set(parents)
+    assert _names(spans).count("call.rows") == len(FINDERS)
+    # a root for the loads and one for each finder's part (one for the novel pass)
+    roots = [s for s in spans if s[0] == "stage.call"]
+    assert len(roots) == 1 + len(FINDERS) + novel
+    assert all(a[2] <= b[1] for a, b in zip(roots, roots[1:]))
+    me = threading.get_ident()
+    for name, t0, t1, parent, thread in spans:
+        assert thread == me and t0 <= t1, name
+        if parent == -1:
+            assert parents[name] == {None}, name
+            continue
+        p_name, p_t0, p_t1 = spans[parent][:3]
+        assert p_name in parents[name], name
+        assert p_t0 <= t0 and t1 <= p_t1, name
+    # each finder's parts one after the other: candidates, match, rows
+    for f in FINDERS:
+        (outer,) = [i for i, s in enumerate(spans) if s[0] == f"call.{f}"]
+        parts = [s for s in spans if s[3] == outer]
+        assert _names(parts) == [f"call.{f}.candidates", f"call.{f}.match", "call.rows"]
+        assert all(a[2] <= b[1] for a, b in zip(parts, parts[1:]))
+
+
+def test_call_streams_between_finders(call_inputs):
+    """The header comes once the graph and the GTF are loaded, and each
+    finder's part runs only when its first row is asked for."""
+    from pantas_tpu_torch.events.batched import call_events_device
+    from pantas_tpu_torch.events.caller import CSV_HEADER, CallOptions
+
+    trace.enable()
+    rows = call_events_device(*call_inputs, CallOptions(rca=0), log=io.StringIO(),
+                              devices=["cpu"])
+    assert next(rows) == CSV_HEADER
+    assert _names(trace.snapshot()["spans"]) == ["stage.call", "call.graph_load", "call.gtf"]
+    assert next(rows).startswith("ES,")
+    names = _names(trace.snapshot()["spans"])
+    assert "call.es" in names and "call.ss" not in names
+    rows.close()
+
+
+@pytest.mark.parametrize("novel", [False, True], ids=["annotated", "novel"])
+def test_call_counts_agree_with_the_rows(call_inputs, novel):
+    """``call.rows.<type>`` sum to the rows yielded, by type, and
+    ``call.candidates.<finder>`` are the candidates that ``EVALS`` counted
+    since the reset, the one count of them."""
+    from collections import Counter
+
+    from pantas_tpu_torch.events import batched
+
+    trace.enable()
+    trace.reset()
+    before = Counter(batched.EVALS)
+    rows = _call(*call_inputs, novel=novel)[1:]
+    c = trace.snapshot()["counters"]
+    by_type = Counter(r.split(",")[0] for r in rows)
+    assert {k: v for k, v in c.items() if k.startswith("call.rows.")} == \
+        {f"call.rows.{t}": n for t, n in by_type.items()}
+    evals = Counter(batched.EVALS)
+    evals.subtract(before)
+    want = {f"call.candidates.{batched.finder_label(f)}": n for (f, _), n in evals.items() if n}
+    assert {k: v for k, v in c.items() if k.startswith("call.candidates.")} == want
+    assert set(want) >= {f"call.candidates.{f}" for f in FINDERS}
+    assert c["call.h2d_bytes"] > 4 * sum(want.values())  # the indices and the tables
+    trace.reset()
+    assert trace.snapshot()["counters"] == {"kernels.launches": 0}
