@@ -22,6 +22,7 @@ enumerator in both packages. Nothing here imports ``jax``.
 
 from __future__ import annotations
 
+import gc
 from collections import Counter
 from itertools import product
 from typing import Dict, List, Optional, Sequence, Set, Tuple
@@ -762,7 +763,26 @@ def call_events_device(
     inside a root span ``stage.call`` of its own, and lists its rows before
     they are yielded, so a span ends where its work ends and not where the
     consumer resumes; the counters ``call.rows.<event type>`` count the rows.
+    Once the last part has ended, ``call.graph.segments`` and
+    ``call.graph.links`` count the graph's file records, and
+    ``call.graph.seg_built`` and ``call.graph.link_built`` the records built
+    from them (:func:`.caller.record_counts`).
+
+    The cyclic GC is off until the call has ended, as in the host caller
+    (:func:`.caller.call_events`): nothing here makes reference cycles, and
+    the records the graph builds on first lookup would otherwise put a full
+    collection of the process inside a finder.
     """
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        yield from _call_events_device(gfa_path, gtf_path, opts, log, graph, devices)
+    finally:
+        if gc_was:
+            gc.enable()
+
+
+def _call_events_device(gfa_path, gtf_path, opts, log, graph, devices):
     import sys
     from dataclasses import replace
 
@@ -771,6 +791,7 @@ def call_events_device(
         _call_annotated,
         _call_novel,
         _row,
+        record_counts,
         transcript_of_label,
     )
     from pantas_tpu_torch.io.gtf import parse_transcript_maps
@@ -915,6 +936,8 @@ def call_events_device(
                 ce_oracle=ce_oracle,
             )
         yield from _counted(rows)
+    for name, n in record_counts(graph).items():
+        trace.add(f"call.graph.{name}", n)
 
 
 def _counted(rows: list) -> list:

@@ -218,10 +218,14 @@ class SplicingGraph:
     def from_gfa(cls, gfa_path: str) -> "SplicingGraph":
         """Parse an (augmented) GFA; native C loader when available.
 
-        The native path builds identical structures (content, insertion
-        order, interpreter string hashing — so downstream hash-order
-        effects match the pure-Python parse within a process seed); see
-        ``native/gfaload.cpp``. Validated by ``tests/test_native_gfaload``.
+        The native path keeps the file as flat tables: ``seg`` and ``link``
+        are mappings over them that build a record on its first lookup and
+        keep it, and iterate in file order as the pure-Python loader's dicts
+        do. The junction sets and the four endpoint indexes are real sets
+        and dicts with the same content and insertion order (interpreter
+        string hashing — so downstream hash-order effects match the
+        pure-Python parse within a process seed); see
+        ``native/gfaload.cpp``. Validated by ``tests/test_torch_graph_load``.
         """
         if _EXT is not None:
             from pantas_tpu_torch.io.xopen import materialized
@@ -374,6 +378,18 @@ class SplicingGraph:
 
     def inc(self, nid: str) -> List[str]:
         return self.seg[nid].incoming
+
+
+def record_counts(g) -> Dict[str, int]:
+    """Records of a graph's file, and of those the records built: the native
+    loader's mappings build one on its first lookup, a dict (the pure-Python
+    loader's, or any other graph's) holds every one from the start."""
+    return {
+        "segments": getattr(g.seg, "in_file", len(g.seg)),
+        "links": getattr(g.link, "in_file", len(g.link)),
+        "seg_built": getattr(g.seg, "built", len(g.seg)),
+        "link_built": getattr(g.link, "built", len(g.link)),
+    }
 
 
 # --- haplotype-aware transcript name algebra (reference call.py:90-121) ---
