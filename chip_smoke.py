@@ -149,9 +149,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
     zeroed just before it) must show the CUDA sorted scatter on 2^28 slots,
     kernel #1's launches equal to its batches and none of kernel #2; the
     first run's launches go into the record as ``launches_2p28``. The bench
-    splits each run by timing wrappers (tensorize, engine, parse, the
-    batches' host time, read-back, emission) and sums the card's busy time
-    by CUDA events around each batch, which gives its idle share.
+    splits each run by the program's own spans (tensorize, engine, stream,
+    the batches' host time, read-back, emission) and its parse counter.
 17. The full-scale protocol's staged layout on the device engines at a cut
     size: ``python -m pantas_tpu_torch.scripts.run_fullscale_experiment
     --mode both --engine device`` at ``FULLSCALE_ARGS`` (100,000 pairs, one
@@ -925,29 +924,25 @@ def isolation() -> None:
 
 
 def _device_call(argv: list) -> tuple:
-    """``call --engine device`` through the port's CLI on the card, with
-    ``_eval_match`` wrapped (``bench.eval_split``) to time each evaluation
-    (copy to the card, match, synchronise, read-back) and to note its
-    candidates and table bytes. ``EVALS`` is zeroed just before and read
-    just after; every finder that had candidates must have evaluated them
-    all on ``cuda``, and none on ``cpu``. Returns (per-finder record, wall
+    """``call --engine device`` through the port's CLI on the card, traced
+    (``bench.traced``): each finder's evaluations (copy to the card, match,
+    read-back) are timed by its ``call.<finder>.match`` spans. ``EVALS`` is
+    zeroed just before and read just after; every evaluation must have run
+    on ``cuda``. Returns (per-finder record, bytes copied to the card, wall
     seconds)."""
     from pantas_tpu_torch import cli
-    from pantas_tpu_torch.bench import eval_split
+    from pantas_tpu_torch.bench import device_evals, traced
     from pantas_tpu_torch.events import batched
 
-    with eval_split() as seen:
+    batched.EVALS.clear()
+    with traced() as got:
         t0 = time.perf_counter()
         rc = cli.main(["call", "--engine", "device", "--device", "cuda", *argv])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        evals = dict(batched.EVALS)
     if rc:
         raise RuntimeError(f"call --engine device exited {rc}")
-    want = {(f, "cuda"): rec["candidates"] for f, rec in seen.items()}
-    if not seen or evals != want:
-        raise RuntimeError(f"device call evaluations {evals}, expected {want}")
-    return seen, wall
+    return device_evals(got, "cuda"), got["counters"].get("call.h2d_bytes", 0), wall
 
 
 def _sorted_rows(path: Path) -> list:
@@ -972,7 +967,7 @@ def call_path(label: str, wd: Path, aug: Path, coverage: dict) -> list:
     if cli.main(["call", "--rca", "0", str(aug), str(gtf), "-o", str(host_csv)]):
         raise RuntimeError("host call failed")
     host_s = time.perf_counter() - t0
-    seen, dev_s = _device_call(["--rca", "0", str(aug), str(gtf), "-o", str(dev_csv)])
+    seen, h2d, dev_s = _device_call(["--rca", "0", str(aug), str(gtf), "-o", str(dev_csv)])
     host, dev = _sorted_rows(host_csv), _sorted_rows(dev_csv)
     if dev != host:
         raise RuntimeError(f"device call rows differ from the host caller's "
@@ -981,13 +976,12 @@ def call_path(label: str, wd: Path, aug: Path, coverage: dict) -> list:
     if len(events) < 5000:
         raise RuntimeError(f"only {len(events)} events on the 10 Mbp graph")
     by_type = dict(sorted(Counter(",".join(r.split(",")[:2]) for r in events).items()))
-    in_eval = sum(rec["s"] for rec in seen.values())
-    per_finder = {f: {"candidates": rec["candidates"], "table_bytes": rec["table_bytes"],
-                      "eval_s": round(rec["s"], 4)} for f, rec in seen.items()}
+    in_eval = sum(rec["eval_s"] for rec in seen.values())
     print(f"[call] call --rca 0 on the device-augmented 10 Mbp GFA: device engine "
           f"{dev_s:.3f} s, host engine {host_s:.3f} s, rows equal; {len(events)} events "
-          f"{by_type}; inside _eval_match {in_eval:.3f} s ({100 * in_eval / dev_s:.1f}% of "
-          f"the device wall); per finder {json.dumps(per_finder)} [{label}]", flush=True)
+          f"{by_type}; in the call.<finder>.match spans {in_eval:.3f} s "
+          f"({100 * in_eval / dev_s:.1f}% of the device wall), {h2d} B copied to the card; "
+          f"per finder {json.dumps(seen)} [{label}]", flush=True)
 
     sys.path.insert(0, str(REPO / "tests"))
     from fixtures_call import write_call_fixtures
@@ -999,7 +993,7 @@ def call_path(label: str, wd: Path, aug: Path, coverage: dict) -> list:
             flags = ["--rca", "0", "--novel", gfa, gtf]
             if cli.main(["call", *flags, "-o", str(h)]):
                 raise RuntimeError(f"host call failed on the {name} fixture")
-            seen, _ = _device_call([*flags, "-o", str(d)])
+            seen, _, _ = _device_call([*flags, "-o", str(d)])
             if _sorted_rows(d) != _sorted_rows(h):
                 raise RuntimeError(f"device call rows differ from the host's on the {name} fixture")
             for f, rec in seen.items():
@@ -1299,7 +1293,8 @@ def mapped_path(label: str, wd: Path, gfa: Path) -> tuple:
         if cli.main(["call", *MAPPED_CALL_FLAGS, str(aug), str(gtf), "-o", str(host_csv)]):
             raise RuntimeError(f"mapped {cond}: host call failed")
         host_s = time.perf_counter() - t0
-        seen, dev_s = _device_call([*MAPPED_CALL_FLAGS, str(aug), str(gtf), "-o", str(dev_csv)])
+        seen, _, dev_s = _device_call([*MAPPED_CALL_FLAGS, str(aug), str(gtf), "-o",
+                                       str(dev_csv)])
         host, dev = _sorted_rows(host_csv), sorted(dev_csv.read_text().splitlines())
         if dev != host:
             raise RuntimeError(f"mapped {cond}: device call rows differ from the host caller's "
@@ -1546,8 +1541,7 @@ def _genome_runs(log: str) -> list:
     """The bench's two device augments on the 100 Mbp graph, from its log:
     each must have run the CUDA sorted scatter on 2^28 slots, launched kernel
     #1 once a batch and kernel #2 never. Returns, for each, its seconds,
-    kernel #1's launches, batches, predicted batches and the card's idle
-    share in percent."""
+    kernel #1's launches, batches and predicted batches."""
     runs = []
     for line in log.splitlines():
         if "genome-scale device augment run" not in line:
@@ -1561,8 +1555,7 @@ def _genome_runs(log: str) -> list:
             raise RuntimeError(f"the bench's {BIG_MBP} Mbp device run is not kernel #1 once a "
                                f"batch on {BIG_BUCKET} slots: {line}")
         runs.append({"s": float(re.search(r"reads in ([0-9.]+)s", line)[1]),
-                     "launches": batches, "batches": batches, "predicted": int(impl[3]),
-                     "idle_pct": float(re.search(r"the card idle ([0-9.]+)%", line)[1])})
+                     "launches": batches, "batches": batches, "predicted": int(impl[3])})
     if len(runs) != 2:
         raise RuntimeError(f"the bench's log holds {len(runs)} {BIG_MBP} Mbp device runs, not 2")
     return runs
@@ -1610,8 +1603,7 @@ def bench_path(label: str) -> dict:
           f"fresh cache chose {chose.group(1)}; kernel #1 launches {launches} = the batches "
           f"of the {runs} runs that chose it; at {BIG_MBP} Mbp in the 2^28 bucket "
           f"{[r['launches'] for r in genome]} launches = batches (~{genome[0]['predicted']} "
-          f"predicted), {[r['s'] for r in genome]} s, the card idle "
-          f"{[r['idle_pct'] for r in genome]}% [{label}]", flush=True)
+          f"predicted), {[r['s'] for r in genome]} s [{label}]", flush=True)
     return {"launches": launches, "launches_2p28": genome[0]["launches"]}
 
 
@@ -1625,10 +1617,10 @@ FULLSCALE_TIMEOUT_S = 600
 def replicate_kernels(label: str, wd: Path, gfa: Path) -> dict:
     """Condition 1's mapped reads of a ``run_fullscale_experiment --engine
     device`` work dir ``wd`` on the kernels: one device augment of
-    ``c1_r1.gaf`` in this process under ``bench.stage_split`` (with
+    ``c1_r1.gaf`` in this process by ``bench.device_run`` (with
     ``PANTAS_SCATTER`` unset: the sorted kernel, launches = batches, sha256
-    equal to the native engine's in the script's ``c1_r1.device.json``; the
-    card's busy time by CUDA events), then phase 9's ``real_batches`` on its
+    equal to the native engine's in the script's ``c1_r1.device.json``; its
+    split by the program's spans), then phase 9's ``real_batches`` on its
     slot batches. Returns the run's record and that of ``real_batches``."""
     from pantas_tpu_torch.bench import device_run
 
@@ -1650,15 +1642,13 @@ def replicate_kernels(label: str, wd: Path, gfa: Path) -> dict:
     if sha != held["native_sha256"]:
         raise RuntimeError(f"{wd.name}: c1_r1's device GFA {sha} != native engine's "
                            f"{held['native_sha256']}")
-    idle = 1 - rec["split"]["card_busy_s"] / rec["s"]
     print(f"[replicate] {wd.name}: augment --engine device of c1_r1 ({gaf.stat().st_size} B "
           f"GAF) in a process's first device augment here: {rec['s']:.3f} s, {launches} kernel "
           f"launches = {rec['batches']} batches (~{held['batches_expected']} expected), "
-          f"sha256 == native engine's; split {json.dumps(rec['split'])}, the card idle "
-          f"{100 * idle:.2f}% of the stage [{label}]", flush=True)
+          f"sha256 == native engine's; split {json.dumps(rec['split'])} [{label}]", flush=True)
     real = real_batches(label, gfa, gaf, tag="replicate",
                         source=f"{wd.name}'s c1_r1 mapped reads")
-    return {"run": rec, "idle": idle, "real": real}
+    return {"run": rec, "real": real}
 
 
 def compressed_big(label: str) -> dict:
@@ -1667,58 +1657,43 @@ def compressed_big(label: str) -> dict:
     --engine device`` on them through the port's CLI with a plain ``-o`` and
     with ``-o *.zst``. The decompressed sha256 (by the port's reader and by
     libzstd's one-shot ``ZSTD_decompress``) must equal the plain one,
-    kernel #1's launches the batches, and the GFA must have been written by
-    the native emitter on a pipe (``NativeCoverage.emit`` once, on a FIFO;
-    the Python emitter never). Run it as ``python3 -c "import chip_smoke as s;
+    kernel #1's launches the batches, and the native emitter must have
+    written every byte of the GFA (its span ``native.emit`` and its counter
+    ``emit.bytes_out``, traced by ``bench.traced``). Run it as ``python3 -c "import chip_smoke as s;
     from pantas_tpu_torch import backend; s.compressed_big(backend.card_label())"``."""
-    import stat
-
     from pantas_tpu_torch import cli
-    from pantas_tpu_torch.coverage import device as device_mod
-    from pantas_tpu_torch.native import gafcov
+    from pantas_tpu_torch.bench import traced
 
     wd = REPO / ".bench" / f"stress{BIG_MBP}m"
     gfa, gaf = wd / "out" / "pantranscriptome-annotated.gfa", wd / f"reads_{BIG_READS}.gaf"
     if not (gfa.exists() and gaf.exists()):
         raise RuntimeError(f"{gfa} or {gaf} is missing: run chip_smoke.py first")
-    emits, rec = [], {}
-    real_emit, python_emit = gafcov.NativeCoverage.emit, device_mod.emit_augmented_gfa
+    rec = {}
+    for name in ("plain", "zst"):
+        out = wd / ("smoke_big.gfa" if name == "plain" else "smoke_big.gfa.zst")
 
-    def emit(self, gfa_in, out_fd):
-        emits.append(stat.S_ISFIFO(os.fstat(out_fd).st_mode))
-        return real_emit(self, gfa_in, out_fd)
+        def run(out):
+            return cli.main(["augment", "--engine", "device", str(gaf), str(gfa),
+                             "-o", str(out)])
 
-    def no_python_emission(*a, **k):
-        raise RuntimeError("the Python emitter ran")
-
-    gafcov.NativeCoverage.emit, device_mod.emit_augmented_gfa = emit, no_python_emission
-    try:
-        for name in ("plain", "zst"):
-            out = wd / ("smoke_big.gfa" if name == "plain" else "smoke_big.gfa.zst")
-
-            def run(out):
-                return cli.main(["augment", "--engine", "device", str(gaf), str(gfa),
-                                 "-o", str(out)])
-
-            del emits[:]
-            try:
+        try:
+            with traced() as got:
                 log, counted, seconds, batches = _device_augment(gaf, gfa, out, {}, run)
-                launches = _kernel1_checked(counted, batches, f"100 Mbp -o {out.name}")
-                t0 = time.perf_counter()
-                sha, plain_bytes = _decompressed_sha256(out)
-                rec[name] = {"s": seconds, "launches": launches, "batches": batches,
-                             "bytes": out.stat().st_size, "sha256": sha,
-                             "plain_bytes": plain_bytes,
-                             "hash_s": time.perf_counter() - t0, "native_emits": list(emits)}
-                if name == "zst" and _one_shot_sha256(out, plain_bytes) != sha:
-                    raise RuntimeError("100 Mbp -o *.zst: the one-shot decode differs")
-            finally:
-                out.unlink(missing_ok=True)
-            if _decision(log) != "cuda-sorted" or emits != [name == "zst"]:
-                raise RuntimeError(f"100 Mbp -o {out.name}: {_decision(log)}, native emits "
-                                   f"on a FIFO {emits}")
-    finally:
-        gafcov.NativeCoverage.emit, device_mod.emit_augmented_gfa = real_emit, python_emit
+            launches = _kernel1_checked(counted, batches, f"100 Mbp -o {out.name}")
+            t0 = time.perf_counter()
+            sha, plain_bytes = _decompressed_sha256(out)
+            rec[name] = {"s": seconds, "launches": launches, "batches": batches,
+                         "bytes": out.stat().st_size, "sha256": sha,
+                         "plain_bytes": plain_bytes, "hash_s": time.perf_counter() - t0,
+                         "native_emit_bytes": got["counters"].get("emit.bytes_out")}
+            if name == "zst" and _one_shot_sha256(out, plain_bytes) != sha:
+                raise RuntimeError("100 Mbp -o *.zst: the one-shot decode differs")
+        finally:
+            out.unlink(missing_ok=True)
+        if (_decision(log) != "cuda-sorted" or "native.emit" not in got["spans"]
+                or rec[name]["native_emit_bytes"] != plain_bytes):
+            raise RuntimeError(f"100 Mbp -o {out.name}: {_decision(log)}, the native emitter "
+                               f"wrote {rec[name]['native_emit_bytes']} of {plain_bytes} B")
     plain, zst = rec["plain"], rec["zst"]
     if zst["sha256"] != plain["sha256"]:
         raise RuntimeError(f"100 Mbp: -o *.zst {zst}, plain {plain}")
@@ -1728,80 +1703,9 @@ def compressed_big(label: str) -> dict:
           f"({zst['bytes']} B, decompressed and hashed in {zst['hash_s']:.3f} s; the same sha256 "
           f"by ZSTD_decompress), both sha256 "
           f"{plain['sha256']}; kernel #1 launches = batches ({plain['batches']}, "
-          f"{zst['batches']}); the native emitter wrote the .zst through a pipe [{label}]",
+          f"{zst['batches']}); the native emitter wrote every byte of both [{label}]",
           flush=True)
     return rec
-
-
-def python_sink_walls(label: str, repeats: int = 2) -> dict:
-    """Not a phase: what the pipe costs an output that Python writes.
-    ``augment --engine device-py`` on the first ``COMPRESSED_LINES`` lines of
-    the 10 Mbp GAF (``_inputs()``), whose Python emitter writes the whole
-    10 Mbp GFA, with ``-o *.zst`` and with ``-o *.gz`` (``gzip`` off
-    ``PATH``), each through ``open_stage_output``'s pipe and drain thread and
-    through the compressor straight (the handle ``xopen(path, "wt")``, as
-    ``open_stage_output`` gave before the pipe), in the order pipe, straight,
-    straight, pipe, ``repeats`` times; a plain ``-o`` first. Every output
-    must decompress to the plain run's sha256, launches = batches. Run it as
-    ``python3 -c "import chip_smoke as s; from pantas_tpu_torch import
-    backend; s.python_sink_walls(backend.card_label())"``."""
-    from pantas_tpu_torch import cli
-    from pantas_tpu_torch.io import xopen as xopen_mod
-
-    wd, gfa, gaf = _inputs()
-    head = wd / "sink_head.gaf"
-    with open(gaf, "rb") as src, open(head, "wb") as dst:
-        for _, line in zip(range(COMPRESSED_LINES), src):
-            dst.write(line)
-
-    @contextlib.contextmanager
-    def straight(path):
-        with xopen_mod.xopen(path, "wt") as fh:
-            yield fh
-
-    piped = xopen_mod.open_stage_output
-    walls = {}
-
-    def run_one(out, route, env):
-        def run(out):
-            return cli.main(["augment", "--engine", "device-py", str(head), str(gfa),
-                             "-o", str(out)])
-
-        xopen_mod.open_stage_output = straight if route == "straight" else piped
-        try:
-            _, counted, seconds, batches = _device_augment(head, gfa, out, env, run)
-        finally:
-            xopen_mod.open_stage_output = piped
-        _kernel1_checked(counted, batches, f"device-py -o {out.name} ({route})")
-        return seconds
-
-    try:
-        plain = wd / "sink_plain.gfa"
-        walls["plain"] = [run_one(plain, "pipe", {})]
-        ref_sha, size = _sha256(plain), plain.stat().st_size
-        plain.unlink()
-        for suffix, env in (("zst", {}), ("gz", {"PATH": _without_gzip()})):
-            out = wd / f"sink_out.gfa.{suffix}"
-            for route in ("pipe", "straight", "straight", "pipe") * repeats:
-                try:
-                    seconds = run_one(out, route, env)
-                    sha, n = _decompressed_sha256(out)
-                    packed = out.stat().st_size
-                finally:
-                    out.unlink(missing_ok=True)
-                if (sha, n) != (ref_sha, size):
-                    raise RuntimeError(f"device-py -o *.{suffix} ({route}): {sha}, {n} B")
-                walls.setdefault(f"{suffix}-{route}", []).append(seconds)
-    finally:
-        head.unlink(missing_ok=True)
-    med = {k: statistics.median(v) for k, v in walls.items()}
-    print(f"[sink] augment --engine device-py, the first {COMPRESSED_LINES} lines, 10 Mbp GFA "
-          f"({size} B, Python emitter): plain -o {med['plain']:.3f} s; -o *.zst pipe "
-          f"{med['zst-pipe']:.3f} s vs straight {med['zst-straight']:.3f} s; -o *.gz without "
-          f"gzip pipe {med['gz-pipe']:.3f} s vs straight {med['gz-straight']:.3f} s (medians of "
-          f"{2 * repeats}; runs {json.dumps({k: [round(x, 3) for x in v] for k, v in walls.items()})}"
-          f"); every output sha256 {ref_sha} [{label}]", flush=True)
-    return walls
 
 
 def fullscale_path(label: str) -> dict:

@@ -42,7 +42,6 @@ import hashlib
 import io
 import json
 import os
-import re
 import shutil
 import statistics
 import subprocess
@@ -240,37 +239,36 @@ def _augmented(gfa: Path, big: Path) -> Path:
 
 
 @contextlib.contextmanager
-def eval_split():
-    """Time the device call engine's evaluations (copy to the device, match,
-    synchronise, read-back) by wrapping ``batched._eval_match``, and zero
-    ``EVALS`` first (``chip_smoke.py`` phase 6 uses this too). Yields
-    ``{finder: {"candidates", "table_bytes", "s"}}``, filled as the engine
-    runs."""
-    from pantas_tpu_torch.events import batched
+def traced():
+    """The program's tracing (:mod:`pantas_tpu_torch.trace`) on for the
+    block, from a reset, and off after it. Yields a dict that then holds the
+    snapshot's ``counters`` and its ``spans`` summed by name."""
+    from pantas_tpu_torch import trace
 
-    seen = {}
-    inner = batched._eval_match
-
-    def timed(match, tables, index_arrays, devices=None):
-        t0 = time.perf_counter()
-        hits = inner(match, tables, index_arrays, devices)
-        on = {torch.device(d) for d in devices or ("cpu",)}
-        for dev in on:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        rec = seen.setdefault(match.__name__.removeprefix("match_"),
-                              {"candidates": 0, "table_bytes": 0, "s": 0.0})
-        rec["candidates"] += len(index_arrays[0])
-        rec["table_bytes"] += sum(m.nbytes for m in tables) * len(devices or on)
-        rec["s"] += time.perf_counter() - t0
-        return hits
-
-    batched._eval_match = timed
-    batched.EVALS.clear()
+    got = {}
+    trace.reset()
+    trace.enable()
     try:
-        yield seen
+        yield got
+        snap = trace.snapshot()
     finally:
-        batched._eval_match = inner
+        trace.disable()
+    got.update(counters=snap["counters"], spans=trace.span_totals(snap))
+
+
+def device_evals(got: dict, device_type: str) -> dict:
+    """``{finder: {"candidates", "eval_s"}}`` of a device call run under
+    :func:`traced` with ``EVALS`` zeroed first: the candidates from
+    ``EVALS``, every one of which must have run on ``device_type``, and the
+    seconds in the finder's ``call.<finder>.match`` spans."""
+    from pantas_tpu_torch.events.batched import EVALS, finder_label
+
+    if not EVALS or {dev for _, dev in EVALS} != {device_type}:
+        raise RuntimeError(f"device call evaluations {dict(EVALS)}, expected every one on "
+                           f"{device_type}")
+    return {f: {"candidates": n,
+                "eval_s": round(got["spans"][f"call.{finder_label(f)}.match"], 4)}
+            for (f, _), n in EVALS.items()}
 
 
 def bench_call(gfa, gtf, big, device="cuda"):
@@ -317,97 +315,31 @@ def bench_call(gfa, gtf, big, device="cuda"):
     want = sorted(rows)
     walls, split = [], None
     for _ in range(3):
-        with eval_split() as seen:
+        EVALS.clear()
+        with traced() as got:
             t0 = time.time()
-            got = sorted(call_events_device(str(aug), str(gtf), CallOptions(rca=0),
+            out = sorted(call_events_device(str(aug), str(gtf), CallOptions(rca=0),
                                             log=io.StringIO(), devices=devices))
             walls.append(time.time() - t0)
-            evals = dict(EVALS)
-        if got != want:
+        if out != want:
             raise RuntimeError(f"call --engine device rows differ from the host caller's "
-                               f"({len(got)} vs {len(want)} lines)")
-        expected = {(f, devices[0].type): rec["candidates"]
-                    for f, rec in seen.items() if rec["candidates"]}
-        if not expected or {k: v for k, v in evals.items() if v} != expected:
-            raise RuntimeError(f"device call evaluations {evals}, expected {expected}")
+                               f"({len(out)} vs {len(want)} lines)")
+        evals = device_evals(got, devices[0].type)
         if split is None or walls[-1] == min(walls):
-            split = seen
+            split = evals
     best = min(walls)
-    in_eval = sum(rec["s"] for rec in split.values())
-    per_finder = {f: {"candidates": rec["candidates"], "eval_s": round(rec["s"], 4)}
-                  for f, rec in split.items()}
+    in_eval = sum(rec["eval_s"] for rec in split.values())
     log(f"call --engine device ({devices[0]}): {n_events} events in {best:.2f}s "
         f"(best of 3, walls {[round(w, 2) for w in walls]}s), rows equal to the host "
-        f"caller's; inside _eval_match {in_eval:.3f}s ({100 * in_eval / best:.1f}% of the "
-        f"best wall); per finder {json.dumps(per_finder)}")
+        f"caller's; in the call.<finder>.match spans {in_eval:.3f}s ({100 * in_eval / best:.1f}% "
+        f"of the best wall); per finder {json.dumps(split)}")
     return {"events": n_events, "host_s": dt, "novel_events": n_novel, "device_s": best}
 
 
-@contextlib.contextmanager
-def stage_split(device):
-    """Time the parts of one device augment by wrapping the functions it
-    calls: the tensorize, the native engine's creation, each batch's host
-    time, the read-back and the native emission; the stream's wall less the
-    batches' host time is the native parse. On a card, ``card_busy_s`` sums
-    CUDA event pairs around each batch (``chip_smoke.py`` phase 15 splits its
-    stage with this too). Yields the dict the wrappers fill."""
-    from pantas_tpu_torch.coverage import device as device_mod
-    from pantas_tpu_torch.native.gafcov import NativeCoverage
-
-    on_card = torch.device(device).type == "cuda"
-    split = {"tensorize_s": 0.0, "engine_s": 0.0, "batches_host_s": 0.0, "readback_s": 0.0,
-             "emit_s": 0.0, "stream_s": 0.0}
-    events, stream_start = [], []
-
-    def timed(key, fn):
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                split[key] += time.perf_counter() - t0
-        return wrapper
-
-    inner_add = device_mod.DeviceCoverage.add_slots
-    inner_result = device_mod.DeviceCoverage.result
-
-    def add_slots(self, *args, **kwargs):
-        if not stream_start:
-            stream_start.append(time.perf_counter())
-        if not on_card:
-            return inner_add(self, *args, **kwargs)
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        inner_add(self, *args, **kwargs)
-        b.record()
-        events.append((a, b))
-
-    def result(self):
-        if stream_start:
-            split["stream_s"] = time.perf_counter() - stream_start[0]
-        return inner_result(self)
-
-    patches = [
-        (device_mod, "compile_gfa", timed("tensorize_s", device_mod.compile_gfa)),
-        (device_mod, "_native_engine", timed("engine_s", device_mod._native_engine)),
-        (device_mod.DeviceCoverage, "add_slots", timed("batches_host_s", add_slots)),
-        (device_mod.DeviceCoverage, "result", result),
-        (device_mod.DeviceCoverage, "_read_back",
-         timed("readback_s", device_mod.DeviceCoverage._read_back)),
-        (NativeCoverage, "emit", timed("emit_s", NativeCoverage.emit)),
-    ]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
-    for obj, name, fn in patches:
-        setattr(obj, name, fn)
-    try:
-        yield split
-    finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
-        if on_card:
-            torch.cuda.synchronize()
-            split["card_busy_s"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
-        split["parse_s"] = split["stream_s"] - split["batches_host_s"]
+# device_run's split: each key and the program's span it sums
+SPLIT_SPANS = {"tensorize_s": "graph.compile_gfa", "engine_s": "native.engine_init",
+               "stream_s": "native.stream", "batches_host_s": "device.add_slots",
+               "readback_s": "device.readback", "emit_s": "native.emit"}
 
 
 class _Tee(io.TextIOBase):
@@ -422,8 +354,10 @@ class _Tee(io.TextIOBase):
 
 def device_run(gaf, gfa, out, device) -> dict:
     """One device augment of ``gaf`` on ``gfa`` into ``out`` on ``device``,
-    under the caller's ``PANTAS_SCATTER``: its wall, split, kernel launches
-    (zeroed just before), batches, the ``scatter impl:`` lines, and under
+    under the caller's ``PANTAS_SCATTER``: its wall, its split by the
+    program's spans (:data:`SPLIT_SPANS`, and ``parse_s`` from the counter
+    ``slots.parse_ns``), kernel launches (zeroed just before), batches (the
+    counter ``device.batches``), the ``scatter impl:`` lines, and under
     ``auto`` or ``race`` the verdict file it left."""
     from pantas_tpu_torch import backend
     from pantas_tpu_torch.coverage import kernels, scatter_impls
@@ -432,24 +366,24 @@ def device_run(gaf, gfa, out, device) -> dict:
     dev = backend.device(device)
     said = io.StringIO()
     kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
-    with stage_split(dev) as split, open(out, "w") as fh:
+    with traced() as got, open(out, "w") as fh:
         t0 = time.perf_counter()
         augment_gfa_device_native(str(gaf), str(gfa), out=fh, log=_Tee(sys.stderr, said),
                                   device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0
-    text = said.getvalue()
-    done = re.search(r"\[device\] kernel launches: \d+ \(batches: (\d+)\)", text)
+    split = {key: got["spans"].get(name, 0.0) for key, name in SPLIT_SPANS.items()}
+    split["parse_s"] = got["counters"].get("slots.parse_ns", 0) / 1e9
     record = {
         "s": seconds,
         "launches": dict(kernels.LAUNCHES),
-        "batches": int(done.group(1)),
-        "impl": [ln.split("scatter impl: ", 1)[1] for ln in text.splitlines()
+        "batches": got["counters"].get("device.batches", 0),
+        "impl": [ln.split("scatter impl: ", 1)[1] for ln in said.getvalue().splitlines()
                  if "scatter impl: " in ln],
         "split": {k: round(v, 4) for k, v in split.items()},
     }
-    if os.environ.get("PANTAS_SCATTER", "").lower() in ("auto", "race"):
+    if scatter_impls.pantas_scatter()[0] == "race":
         with open(scatter_impls._verdict_file()) as fh:
             record["verdict"] = json.load(fh)
     return record
@@ -472,11 +406,6 @@ def _check_run(what, rec, out, native_sha, device) -> int:
         raise RuntimeError(f"{what}: {rec['launches']} kernel launches for {rec['batches']} "
                            f"batches under {chosen}")
     return 0 if raced else want
-
-
-def _idle(rec) -> str:
-    busy = rec["split"].get("card_busy_s")
-    return "not measured (no card)" if busy is None else f"{100 * (1 - busy / rec['s']):.2f}%"
 
 
 def bench_device(gfa, big, n_reads, device="cuda"):
@@ -519,7 +448,7 @@ def bench_device(gfa, big, n_reads, device="cuda"):
         totals["runs"] += held > 0
         log(f"{what}: {rec['s']:.2f}s, scatter impl: {' -> '.join(rec['impl'])}; LAUNCHES "
             f"{rec['launches']} for {rec['batches']} batches; sha256 == native engine's; "
-            f"split {json.dumps(rec['split'])}, the card idle {_idle(rec)}")
+            f"split {json.dumps(rec['split'])}")
         return rec
 
     with tempfile.TemporaryDirectory() as cache:  # pays the race on a fresh cache; discarded
@@ -602,8 +531,7 @@ def bench_genome_augment(device="cuda"):
         log(f"genome-scale device augment run {i} ({device}): {n_reads} reads in "
             f"{rec['s']:.2f}s = {n_reads / rec['s']:.0f} reads/s, scatter impl: "
             f"{rec['impl'][-1]}; LAUNCHES {rec['launches']} for {rec['batches']} batches; "
-            f"sha256 == native engine's; split {json.dumps(rec['split'])}, "
-            f"the card idle {_idle(rec)}")
+            f"sha256 == native engine's; split {json.dumps(rec['split'])}")
     fastest = min(runs, key=lambda r: r["s"])
     log(f"genome-scale device augment best-of-2: {n_reads / fastest['s']:.0f} reads/s")
     return {"native_s": best, "device_s": fastest["s"], "batches": fastest["batches"],

@@ -133,14 +133,12 @@ def _cmd_augment(argv):
     dev = mesh = None
     if args.engine in ("device", "device-py"):
         from pantas_tpu_torch import backend
-        from pantas_tpu_torch.coverage.device import check_mesh_scatter, scatter_choice
+        from pantas_tpu_torch.coverage.scatter_impls import pantas_scatter
 
         # before the output is opened
         dev = backend.device(args.device)
-        scatter_env = os.environ.get("PANTAS_SCATTER", "")
-        scatter_choice(scatter_env)
+        pantas_scatter(mesh=bool(args.mesh))
         if args.mesh:
-            check_mesh_scatter(scatter_env)
             mesh = _augment_mesh(args.mesh, args.device)
     with _stage_out(args.out) as out:
         return _run_augment(args, dev, mesh, out)

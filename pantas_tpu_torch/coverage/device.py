@@ -4,7 +4,8 @@ Port of ``pantas_tpu/coverage/device.py``. The per-read semantics stay on
 the host; what reaches the device is a flat stream of count-slot indices into
 one counts vector (layout ``[NC | IL | OL | RC]``, see
 :mod:`pantas_tpu_torch.graph.compiler`), and each batch of it is one step of
-the scatter that ``PANTAS_SCATTER`` selects (:func:`scatter_choice`): by
+the scatter that ``PANTAS_SCATTER`` selects
+(:func:`.scatter_impls.pantas_scatter`): by
 default :func:`pantas_tpu_torch.coverage.kernels.sorted_coverage_scatter_add`,
 on a CUDA device the hand-written kernel, on the CPU its plain version. Under
 a mesh (:mod:`pantas_tpu_torch.parallel.mesh`) the same step runs on every
@@ -41,15 +42,6 @@ from pantas_tpu_torch.graph.compiler import GraphTensors, compile_gfa
 from pantas_tpu_torch.io.gaf import parse_gaf_line
 from pantas_tpu_torch.io.xopen import xopen
 from pantas_tpu_torch.parallel import mesh as mesh_lib
-
-# PANTAS_SCATTER values: the JAX package's spellings and the port's own names
-SCATTER_CHOICES = {
-    "xla": "plain", "off": "plain", "plain": "plain",
-    "pallas": "cuda-sorted", "sorted": "cuda-sorted", "pallas-sorted": "cuda-sorted",
-    "cuda-sorted": "cuda-sorted",
-    "race": "race", "auto": "race",
-}
-
 
 class SlotEncoder:
     """Convert ReadEvents into count-slot indices + host-side order tracking."""
@@ -119,36 +111,6 @@ def counts_from_numpy(flat: np.ndarray, padded_slots: int, device) -> torch.Tens
     return out
 
 
-def scatter_choice(value: str) -> str:
-    """``plain``, ``cuda-sorted`` or ``race`` for a ``PANTAS_SCATTER`` value.
-
-    Unset (empty) is ``cuda-sorted``, the kernel measured on the card, where
-    the JAX package races by default on a TPU (ROADMAP.md §3). An unknown
-    value raises, where the JAX package takes its plain scatter in silence.
-    """
-    if not value:
-        return "cuda-sorted"
-    try:
-        return SCATTER_CHOICES[value.lower()]
-    except KeyError:
-        raise ValueError(
-            f"PANTAS_SCATTER={value!r} is not one of {', '.join(SCATTER_CHOICES)}"
-        ) from None
-
-
-def check_mesh_scatter(value: str) -> None:
-    """Refuse ``race`` and ``auto`` under a mesh. The JAX engine ignores
-    ``PANTAS_SCATTER`` under a mesh and runs its XLA scatter; here a shard's
-    partial is an ordinary tensor on one device, so every shard runs the
-    named step, and a race that quietly settled on ``index_add_`` would hide
-    the kernel."""
-    if scatter_choice(value) == "race":
-        raise ValueError(
-            f"PANTAS_SCATTER={value} cannot be combined with a mesh: name a "
-            "scatter (plain, cuda-sorted) or leave it unset for cuda-sorted"
-        )
-
-
 def impl_label(name: str, device: torch.device) -> str:
     """The impl as logged: on the CPU a kernel's wrapper runs its plain
     version, so ``cuda-sorted`` shows as ``cpu-sorted-plain`` there."""
@@ -167,15 +129,15 @@ class DeviceCoverage:
     Either way ``counts`` then holds the partials (``counts[d][k]``) and the
     one reduction happens in :meth:`merged`.
 
-    The scatter step is chosen from ``PANTAS_SCATTER`` (:func:`scatter_choice`)
-    as the JAX engine chooses it: a named impl at once, or ``race``/``auto``
+    The scatter step is chosen from ``PANTAS_SCATTER``
+    (:func:`.scatter_impls.pantas_scatter`) as the JAX engine chooses it: a named impl at once, or ``race``/``auto``
     on the first batch that holds a real index, by
     :func:`.scatter_impls.pick_scatter_endtoend` with ``batches_hint``, the
     stage's expected batch count
     (:func:`_estimate_batches`); ``race`` forces
     a fresh race, ``auto`` decides from a cached verdict where one exists.
-    Under a mesh the race is refused (:func:`check_mesh_scatter`): every
-    shard runs the named step, ``cuda-sorted`` when nothing is named.
+    Under a mesh the race is refused (:func:`.scatter_impls.mesh_scatter`):
+    every shard runs the named step, ``cuda-sorted`` when nothing is named.
     """
 
     def __init__(self, tensors: GraphTensors, device=None, batches_hint=None, log=None,
@@ -189,12 +151,8 @@ class DeviceCoverage:
             self.batches = 0
             self._launches_at_start = sum(kernels.LAUNCHES.values())
             self._batches_hint = batches_hint
-            env = os.environ.get("PANTAS_SCATTER", "")
-            choice = scatter_choice(env)
-            self._force_race = env.lower() == "race"
             if mesh is not None:
-                check_mesh_scatter(env)
-                step = scatter_impls.SCATTER_IMPLS[choice]
+                choice, step = scatter_impls.mesh_scatter()
                 self.n_shards = mesh.data
                 if mesh.node is not None:
                     self._step, shard = mesh_lib.node_sharded_scatter_add(
@@ -209,6 +167,7 @@ class DeviceCoverage:
                 self.counts = mesh_lib.new_parts(mesh, shard)
                 label = f"{impl_label(choice, self.device)} on a {mesh} mesh"
             else:
+                choice, self._force_race = scatter_impls.pantas_scatter()
                 self.n_shards = 1
                 # the JAX engine's power-of-two bucket, kept so both engines hold
                 # the same padded vector (checkpoints and tests compare them)

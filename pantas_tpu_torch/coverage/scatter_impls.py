@@ -5,6 +5,10 @@ Counterpart of ``pantas_tpu/coverage/pallas_kernel.py:217-500``:
 - :data:`SCATTER_IMPLS`, the registry. ``plain`` (``index_add_``),
   ``cuda-sorted`` (kernel #1) and ``cuda-direct`` (kernel #2) stand where the
   JAX package has ``xla``, ``pallas-sorted`` and ``pallas-onehot``.
+- :func:`pantas_scatter` and :func:`mesh_scatter`, the one reader of
+  ``PANTAS_SCATTER`` (its spellings in :data:`SCATTER_CHOICES`): the device
+  engine, the CLI's and ``augment-dist``'s early checks, the graft entry and
+  the scale scripts all ask these.
 - :func:`pick_scatter_endtoend`, the DEPLOYMENT decision: it races whole
   steps at the stage's padded counts length and batch size, on the stage's
   first real batch, and persists the measured stats in a verdict file under
@@ -28,6 +32,7 @@ import os
 import statistics
 import sys
 import time
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +46,53 @@ SCATTER_IMPLS = {
     "cuda-sorted": kernels.sorted_coverage_scatter_add,
     "cuda-direct": kernels.coverage_scatter_add,
 }
+
+# PANTAS_SCATTER values: the JAX package's spellings and the port's own names
+SCATTER_CHOICES = {
+    "xla": "plain", "off": "plain", "plain": "plain",
+    "pallas": "cuda-sorted", "sorted": "cuda-sorted", "pallas-sorted": "cuda-sorted",
+    "cuda-sorted": "cuda-sorted",
+    "race": "race", "auto": "race",
+}
+
+
+def pantas_scatter(mesh: bool = False) -> Tuple[str, bool]:
+    """What ``PANTAS_SCATTER`` chooses: ``plain``, ``cuda-sorted`` or
+    ``race``, and whether the race is forced (``race``; ``auto`` decides from
+    a cached verdict where one exists).
+
+    Unset (empty) is ``cuda-sorted``, the kernel measured on the card, where
+    the JAX package races by default on a TPU (ROADMAP.md §3). An unknown
+    value raises, where the JAX package takes its plain scatter in silence.
+    With ``mesh``, ``race`` and ``auto`` raise too: the JAX engine ignores
+    ``PANTAS_SCATTER`` under a mesh and runs its XLA scatter; here a shard's
+    partial is an ordinary tensor on one device, so every shard runs the
+    named step, and a race that quietly settled on ``index_add_`` would hide
+    the kernel.
+    """
+    value = os.environ.get("PANTAS_SCATTER", "")
+    if not value:
+        return "cuda-sorted", False
+    try:
+        choice = SCATTER_CHOICES[value.lower()]
+    except KeyError:
+        raise ValueError(
+            f"PANTAS_SCATTER={value!r} is not one of {', '.join(SCATTER_CHOICES)}"
+        ) from None
+    if mesh and choice == "race":
+        raise ValueError(
+            f"PANTAS_SCATTER={value} cannot be combined with a mesh: name a "
+            "scatter (plain, cuda-sorted) or leave it unset for cuda-sorted"
+        )
+    return choice, value.lower() == "race"
+
+
+def mesh_scatter() -> Tuple[str, Callable]:
+    """``(name, step)`` of the scatter every shard of a mesh runs, as
+    :func:`pantas_scatter` with ``mesh`` names it."""
+    name, _ = pantas_scatter(mesh=True)
+    return name, SCATTER_IMPLS[name]
+
 
 # minimum projected stage-scatter seconds (under the plain step) before the
 # end-to-end race explores the sorted kernel, as in the JAX package; there

@@ -18,7 +18,6 @@ never moves to the CPU on its own.
 from __future__ import annotations
 
 import io
-import os
 import sys
 import tempfile
 from pathlib import Path
@@ -44,12 +43,8 @@ def entry(device="cuda"):
 def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> None:
     """``devices``, when given, takes the place of the ``n_devices`` devices
     of type ``device`` (a logical mesh that repeats one card, say)."""
-    from pantas_tpu_torch.coverage.device import (
-        augment_gfa_device,
-        check_mesh_scatter,
-        scatter_choice,
-    )
-    from pantas_tpu_torch.coverage.scatter_impls import SCATTER_IMPLS
+    from pantas_tpu_torch.coverage.device import augment_gfa_device
+    from pantas_tpu_torch.coverage.scatter_impls import mesh_scatter
     from pantas_tpu_torch.parallel.mesh import (
         coverage_mesh,
         coverage_mesh_2d,
@@ -66,8 +61,7 @@ def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> None:
     if len(devices) != n_devices:
         raise ValueError(f"need {n_devices} devices, have {len(devices)}")
     # a mesh runs a named step: a race is refused, as the device engine does
-    check_mesh_scatter(os.environ.get("PANTAS_SCATTER", ""))
-    scatter = SCATTER_IMPLS[scatter_choice(os.environ.get("PANTAS_SCATTER", ""))]
+    _, scatter = mesh_scatter()
     mesh = coverage_mesh(devices)
     step = data_parallel_scatter_add(mesh, scatter)
 

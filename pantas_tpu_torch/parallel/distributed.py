@@ -279,9 +279,9 @@ def augment_gfa_distributed(
         _estimate_batches,
         _native_engine,
         counts_from_device,
-        scatter_choice,
     )
     from pantas_tpu_torch.coverage.host import emit_augmented_gfa
+    from pantas_tpu_torch.coverage.scatter_impls import pantas_scatter
     from pantas_tpu_torch.graph.compiler import compile_gfa
     from pantas_tpu_torch.io.xopen import is_compressed, open_stage_output
     from pantas_tpu_torch.native.gafcov import host_threads
@@ -298,7 +298,7 @@ def augment_gfa_distributed(
             "decompress first"
         )
     device = backend.device(device)
-    scatter_choice(os.environ.get("PANTAS_SCATTER", ""))
+    pantas_scatter()
     workdir = workdir or os.path.dirname(os.path.abspath(out_path))
     flush_every = 1 << 20
 

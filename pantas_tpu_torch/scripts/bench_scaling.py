@@ -12,7 +12,6 @@ Usage: python -m pantas_tpu_torch.scripts.bench_scaling [max_devices] [stream_si
 """
 
 import json
-import os
 import sys
 import time
 from pathlib import Path
@@ -30,8 +29,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from pantas_tpu_torch import backend  # noqa: E402
-from pantas_tpu_torch.coverage.device import check_mesh_scatter, scatter_choice  # noqa: E402
-from pantas_tpu_torch.coverage.scatter_impls import SCATTER_IMPLS  # noqa: E402
+from pantas_tpu_torch.coverage.scatter_impls import mesh_scatter  # noqa: E402
 from pantas_tpu_torch.parallel.mesh import (  # noqa: E402
     coverage_mesh,
     data_parallel_scatter_add,
@@ -48,8 +46,7 @@ def _sync(mesh):
 def main():
     cards = backend.mesh_devices(DEVICE, MAX_DEV)  # fewer: a logical mesh over them
     devices = [cards[i % len(cards)] for i in range(MAX_DEV)]
-    check_mesh_scatter(os.environ.get("PANTAS_SCATTER", ""))
-    scatter = SCATTER_IMPLS[scatter_choice(os.environ.get("PANTAS_SCATTER", ""))]
+    _, scatter = mesh_scatter()
     n_slots = 1 << 20
     rng = np.random.default_rng(0)
     idx_np = rng.integers(0, n_slots, size=STREAM, dtype=np.int32)

@@ -188,14 +188,11 @@ def main():
     )
 
     # node-sharded counts layout over the real graph (a 2x4 mesh)
-    import os
-
     import numpy as np
     import torch
 
     from pantas_tpu_torch import backend
-    from pantas_tpu_torch.coverage.device import check_mesh_scatter, scatter_choice
-    from pantas_tpu_torch.coverage.scatter_impls import SCATTER_IMPLS
+    from pantas_tpu_torch.coverage.scatter_impls import mesh_scatter
     from pantas_tpu_torch.graph.compiler import compile_gfa
     from pantas_tpu_torch.parallel.mesh import (
         coverage_mesh_2d,
@@ -210,8 +207,7 @@ def main():
     log(f"tensorize: {time.time() - t0:.1f}s — {tensors.total_slots} count slots")
     cards = backend.mesh_devices(DEVICE, 8)  # fewer than 8: a logical mesh over them
     mesh = coverage_mesh_2d([cards[i % len(cards)] for i in range(8)], 2, 4)
-    check_mesh_scatter(os.environ.get("PANTAS_SCATTER", ""))
-    scatter = SCATTER_IMPLS[scatter_choice(os.environ.get("PANTAS_SCATTER", ""))]
+    _, scatter = mesh_scatter()
     step, shard = node_sharded_scatter_add(mesh, tensors.total_slots, scatter)
     counts = new_parts(mesh, shard)  # private partials
     rng = np.random.default_rng(0)

@@ -28,6 +28,7 @@ twice: the snapshot reports those since :func:`reset` from
     trace.enable()
     ...  # augment_gfa_device_native(...)
     snap = trace.snapshot()  # {"spans": [...], "counters": {...}}
+    trace.span_totals(snap)  # {name: seconds}
 """
 
 from __future__ import annotations
@@ -189,3 +190,13 @@ def snapshot() -> dict:
         if n > 0:
             counters[name] = n
     return {"spans": spans, "counters": counters}
+
+
+def span_totals(snap: dict) -> dict:
+    """Seconds in each span name of a :func:`snapshot`, summed over its
+    closed spans."""
+    out: dict = {}
+    for name, t0, t1, _, _ in snap["spans"]:
+        if t1 is not None:
+            out[name] = out.get(name, 0.0) + (t1 - t0) / 1e9
+    return out

@@ -7,6 +7,7 @@ bench is pointed at it by setting its ``EXAMPLE``, ``CACHE`` and
 event count equal (tolerance 0); timings are not compared. The device runs go
 to the CPU (``--device cpu``)."""
 
+import ast
 import contextlib
 import gzip
 import importlib.util
@@ -159,6 +160,92 @@ def test_every_device_run_has_the_native_bytes(port_run):
     assert "kernel #1 launches over the bench: 0, one a batch in each of the 0 device" in said
     assert "auto on a fresh cache chose plain" in said
     assert "reference augmenter absent" in said
+
+
+def test_device_run_split_is_the_program_spans(port_run, tmp_path, monkeypatch):
+    """``device_run`` times the stage by the program's own spans: each key of
+    its split is the sum of its span in the snapshot the run leaves, and its
+    batches are the counter ``device.batches``, one ``device.add_slots`` span
+    a batch."""
+    from pantas_tpu_torch import bench, trace
+
+    _, (gfa, _, big, _), _, _ = port_run
+    monkeypatch.delenv("PANTAS_SCATTER", raising=False)
+    try:
+        rec = bench.device_run(big, gfa, tmp_path / "device.gfa", "cpu")
+        assert not trace.enabled()
+        snap = trace.snapshot()
+    finally:
+        trace.reset()
+    totals = trace.span_totals(snap)
+    spans = {"tensorize_s": "graph.compile_gfa", "engine_s": "native.engine_init",
+             "stream_s": "native.stream", "batches_host_s": "device.add_slots",
+             "readback_s": "device.readback", "emit_s": "native.emit"}
+    assert sorted(rec["split"]) == sorted([*spans, "parse_s"])
+    for key, name in spans.items():
+        assert totals[name] > 0 and rec["split"][key] == round(totals[name], 4), key
+    assert rec["split"]["parse_s"] == round(snap["counters"]["slots.parse_ns"] / 1e9, 4)
+    batches = snap["counters"]["device.batches"]
+    assert rec["batches"] == batches == sum(s[0] == "device.add_slots" for s in snap["spans"])
+    assert batches >= 1 and rec["impl"][0].startswith("cpu-sorted-plain (")
+    assert "verdict" not in rec
+
+
+@pytest.mark.parametrize("evals,ok", [({("annotated_es", "cpu"): 3}, True),
+                                       ({("annotated_es", "cpu"): 3, ("ir", "cuda"): 2}, False),
+                                       ({}, False)], ids=["on-the-device", "elsewhere", "none"])
+def test_device_evals_must_all_run_on_the_device(monkeypatch, evals, ok):
+    from collections import Counter
+
+    from pantas_tpu_torch import bench
+    from pantas_tpu_torch.events import batched
+
+    monkeypatch.setattr(batched, "EVALS", Counter(evals))
+    got = {"spans": {"call.es.match": 0.25, "call.ir.match": 0.5}, "counters": {}}
+    if ok:
+        assert bench.device_evals(got, "cpu") == {"annotated_es": {"candidates": 3,
+                                                                   "eval_s": 0.25}}
+    else:
+        with pytest.raises(RuntimeError, match="expected every one on cpu"):
+            bench.device_evals(got, "cpu")
+
+
+def _program_patches(path: Path) -> list:
+    """Each ``setattr`` call in ``path``, and each assignment to an attribute
+    of a name it imports from ``pantas_tpu_torch``."""
+    tree = ast.parse(path.read_text())
+    program = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("pantas_tpu_torch"):
+            program.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, ast.Import):
+            program.update((a.asname or a.name).split(".")[0] for a in node.names
+                           if a.name.startswith("pantas_tpu_torch"))
+    hits = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                and node.func.id == "setattr"):
+            hits.append(f"{path.name}:{node.lineno} setattr")
+        targets = (node.targets if isinstance(node, ast.Assign)
+                   else [node.target] if isinstance(node, (ast.AugAssign, ast.AnnAssign)) else [])
+        while any(isinstance(t, (ast.Tuple, ast.List)) for t in targets):
+            targets = [e for t in targets
+                       for e in (t.elts if isinstance(t, (ast.Tuple, ast.List)) else [t])]
+        for target in targets:
+            base = target
+            while isinstance(base, (ast.Attribute, ast.Subscript)):
+                base = base.value
+            if (isinstance(target, ast.Attribute) and isinstance(base, ast.Name)
+                    and base.id in program):
+                hits.append(f"{path.name}:{node.lineno} {ast.unparse(target)} =")
+    return hits
+
+
+@pytest.mark.parametrize("name", ["pantas_tpu_torch/bench.py", "chip_smoke.py"])
+def test_no_timer_patches_the_program(name):
+    """The bench and the smoke read the program's spans; neither replaces a
+    function or method of the program to time it."""
+    assert _program_patches(REPO_ROOT / name) == []
 
 
 @pytest.mark.parametrize("code,message", [

@@ -13,6 +13,7 @@ Every counts comparison is exact equality (integer adds).
 import io
 import json
 import random
+import re
 from pathlib import Path
 
 import numpy as np
@@ -205,7 +206,12 @@ def test_a_failing_candidate_makes_the_race_raise(cache, monkeypatch, bad, match
 )
 def test_pantas_scatter_spellings(tmp_path, monkeypatch, value, choice):
     monkeypatch.setenv("PANTAS_SCATTER", value)
-    assert port.scatter_choice(value) == choice
+    assert si.pantas_scatter() == (choice, value.lower() == "race")
+    if choice == "race":
+        with pytest.raises(ValueError, match=f"PANTAS_SCATTER={value} cannot be combined"):
+            si.mesh_scatter()
+    else:
+        assert si.mesh_scatter() == (choice, si.SCATTER_IMPLS[choice])
     gfa, _ = write_micro(tmp_path)
     dev = port.DeviceCoverage(compile_gfa(gfa), "cpu", log=io.StringIO())
     if choice == "race":
@@ -215,9 +221,16 @@ def test_pantas_scatter_spellings(tmp_path, monkeypatch, value, choice):
 
 
 def test_unknown_pantas_scatter_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PANTAS_SCATTER", "pallas-onehot")
     with pytest.raises(ValueError, match="cuda-sorted"):
-        port.scatter_choice("pallas-onehot")
+        si.pantas_scatter()
     monkeypatch.setenv("PANTAS_SCATTER", "fast")
+    for ask in (si.pantas_scatter, si.mesh_scatter):
+        with pytest.raises(ValueError) as refused:
+            ask()
+        assert str(refused.value) == (
+            "PANTAS_SCATTER='fast' is not one of xla, off, plain, pallas, sorted, "
+            "pallas-sorted, cuda-sorted, race, auto")
     gfa, gaf = write_micro(tmp_path)
     with pytest.raises(ValueError, match="PANTAS_SCATTER='fast'"):
         port.DeviceCoverage(compile_gfa(gfa), "cpu", log=io.StringIO())
@@ -225,6 +238,20 @@ def test_unknown_pantas_scatter_raises(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="PANTAS_SCATTER"):
         cli.main(["augment", "--engine", "device", "--device", "cpu", gaf, gfa, "-o", str(out)])
     assert not out.exists()
+
+
+# a read of the variable: os.environ.get / os.getenv, or os.environ[...] not assigned to
+ENV_READ = re.compile(r"""(environ\.get|getenv)\(\s*["']PANTAS_SCATTER["']"""
+                      r"""|environ\[\s*["']PANTAS_SCATTER["']\s*\](?!\s*=[^=])""")
+
+
+def test_pantas_scatter_is_read_in_scatter_impls_alone():
+    """One owner of the choice: every other module of the port, the smoke
+    and the graft entry ask :func:`pantas_scatter` or :func:`mesh_scatter`."""
+    root = Path(__file__).resolve().parent.parent
+    sources = [root / "chip_smoke.py", *sorted((root / "pantas_tpu_torch").rglob("*.py"))]
+    readers = sorted({str(p.relative_to(root)) for p in sources if ENV_READ.search(p.read_text())})
+    assert readers == ["pantas_tpu_torch/coverage/scatter_impls.py"]
 
 
 def test_cpu_default_runs_the_sorted_wrapper_without_a_race(tmp_path, cache, monkeypatch):

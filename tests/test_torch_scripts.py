@@ -28,10 +28,10 @@ MBP = "0.05"  # ensure_graph's smallest useful graph: 5 genes, 500 SNPs
 CHANGED = {
     # --device, and the mesh step on torch tensors checked against np.bincount
     "stress_build": [(10, 10, 10, 10), (14, 13, 14, 16), (22, 22, 25, 25), (32, 31, 35, 35),
-                     (42, 41, 46, 56), (175, 175, 190, 190), (178, 179, 193, 194),
-                     (181, 183, 196, 198), (187, 186, 202, 202), (189, 188, 205, 205),
-                     (194, 198, 211, 216), (200, 200, 218, 218), (202, 202, 220, 221),
-                     (205, 205, 224, 226), (207, 206, 228, 231), (220, 219, 245, 245)],
+                     (44, 43, 48, 58), (175, 181, 190, 190), (183, 182, 192, 192),
+                     (184, 183, 194, 195), (187, 186, 199, 199), (189, 188, 202, 202),
+                     (194, 198, 208, 212), (200, 200, 214, 214), (202, 202, 216, 217),
+                     (205, 205, 220, 222), (207, 206, 224, 227), (220, 219, 241, 241)],
     # the device engine on the card unless CALL_SCALE_PLATFORM=cpu; the child
     # re-exec through -m
     "bench_call_scale": [(12, 13, 12, 15), (19, 19, 21, 21), (21, 21, 23, 23), (33, 33, 35, 35),
@@ -39,10 +39,10 @@ CHANGED = {
                          (144, 148, 145, 146), (153, 153, 151, 152), (158, 158, 157, 157),
                          (218, 218, 217, 218)],
     # --device, the mesh's private partials and its one reduction in torch
-    "bench_scaling": [(4, 9, 4, 9), (11, 11, 11, 11), (20, 20, 20, 24), (25, 29, 29, 30),
-                      (31, 41, 32, 34), (45, 44, 38, 38), (48, 47, 42, 47), (49, 49, 49, 52),
-                      (60, 62, 63, 65), (65, 65, 68, 68), (67, 68, 70, 71), (72, 72, 75, 76),
-                      (87, 87, 91, 91)],
+    "bench_scaling": [(4, 9, 4, 9), (11, 11, 11, 11), (15, 15, 15, 14), (20, 20, 19, 23),
+                      (25, 39, 28, 27), (41, 40, 29, 29), (42, 41, 31, 32), (45, 44, 36, 36),
+                      (48, 47, 40, 45), (49, 49, 47, 49), (60, 62, 60, 62), (65, 65, 65, 65),
+                      (67, 68, 67, 68), (72, 72, 72, 73), (87, 87, 88, 88)],
     # --device for the ranks; no JAX environment
     "bench_scaling_e2e": [(6, 10, 6, 10), (12, 13, 12, 13), (29, 29, 29, 29), (31, 30, 31, 34),
                           (63, 63, 67, 67), (70, 71, 74, 73), (78, 78, 80, 80),
