@@ -23,16 +23,35 @@ from pantas_tpu_torch import trace
 from pantas_tpu_torch.io.xopen import xopen
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 
+class _FromIds:
+    """A ``GraphTensors`` identity field that, on a graph the native scan
+    compiled, is built from ``node_ids`` on its first read and then kept."""
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            raise AttributeError(self.name)  # a dataclass field with no default
+        if obj.__dict__[self.name] is None:
+            obj._build_names()
+        return obj.__dict__[self.name]
+
+    def __set__(self, obj, value):
+        obj.__dict__[self.name] = value
+
+
 @dataclass
 class GraphTensors:
-    # identity
-    node_names: List[str]  # index -> GFA segment id
-    node_index: Dict[str, int]  # GFA segment id -> index
+    # identity; on the native scan's graphs both are built from node_ids
+    # when first read (the device augment reads neither)
+    node_names: List[str] = _FromIds()  # index -> GFA segment id
+    node_index: Dict[str, int] = _FromIds()  # GFA segment id -> index
     node_len: np.ndarray  # int32[N]
     # edges, sorted by packed key; parallel arrays
     edge_key: np.ndarray  # uint64[E], sorted
@@ -43,6 +62,15 @@ class GraphTensors:
     ol_base: np.ndarray  # int64[N]
     rc_base: int  # base slot of edge counts
     total_slots: int  # len of the flat counts vector
+    # the native scan's canonical int64 segment ids, in file order; None
+    # where the Python parser compiled the graph (not a dataclass field)
+    node_ids = None
+
+    def _build_names(self) -> None:
+        names = [str(i) for i in self.node_ids.tolist()]
+        self.node_names = names
+        self.node_index = {n: i for i, n in enumerate(names)}
+        trace.add("graph.names_built", len(names))
 
     @property
     def n_nodes(self) -> int:
@@ -66,8 +94,9 @@ class GraphTensors:
 
 def compile_gfa(gfa_path: str, engine: str = "auto") -> GraphTensors:
     """GFA -> GraphTensors. ``engine="auto"`` tries the native structural
-    scan (mmap + strtoll in C++, ~10× the Python loop; falls back here for
-    non-canonical-integer segment ids); ``"python"`` forces the fallback."""
+    scan (one mmap pass in C++, ~10× the Python loop; falls back here for
+    segment ids that are not canonical integers), whose int64 ids the result
+    keeps as ``node_ids``; ``"python"`` forces the fallback."""
     with trace.span("graph.compile_gfa"):
         return _compile(gfa_path, engine)
 
@@ -85,33 +114,18 @@ def _compile(gfa_path: str, engine: str) -> GraphTensors:
         if scanned is not None:
             with trace.span("graph.index"):
                 ids, lens_arr, esrc_ids, edst_ids = scanned
-                names = [str(i) for i in ids.tolist()]
-                index = {n: i for i, n in enumerate(names)}
-                if len(esrc_ids):
-                    if len(ids) > 1 and bool(np.all(ids[1:] > ids[:-1])):
-                        spos = np.searchsorted(ids, esrc_ids)
-                        dpos = np.searchsorted(ids, edst_ids)
-                        spos_c = np.minimum(spos, len(ids) - 1)
-                        dpos_c = np.minimum(dpos, len(ids) - 1)
-                        if not (
-                            np.array_equal(ids[spos_c], esrc_ids)
-                            and np.array_equal(ids[dpos_c], edst_ids)
-                        ):
-                            bad = esrc_ids[ids[spos_c] != esrc_ids]
-                            bad = bad if len(bad) else edst_ids[ids[dpos_c] != edst_ids]
-                            raise KeyError(str(int(bad[0])))  # same as index[...] miss
-                        src_i, dst_i = spos_c.astype(np.int64), dpos_c.astype(np.int64)
-                    else:
-                        id2i = {int(v): i for i, v in enumerate(ids.tolist())}
-                        try:
-                            src_i = np.asarray([id2i[int(v)] for v in esrc_ids], np.int64)
-                            dst_i = np.asarray([id2i[int(v)] for v in edst_ids], np.int64)
-                        except KeyError:
-                            raise
+                if ids_dense(ids):  # an id's index is id - 1
+                    order = sorted_ids = None
                 else:
-                    src_i = dst_i = np.zeros(0, np.int64)
+                    order = np.argsort(ids, kind="stable")
+                    sorted_ids = ids[order]
+                src_i = _index_of(esrc_ids, len(ids), sorted_ids, order)
+                dst_i = _index_of(edst_ids, len(ids), sorted_ids, order)
             with trace.span("graph.assemble"):
-                return _assemble(names, index, lens_arr.astype(np.int32), src_i, dst_i)
+                t = _assemble(None, None, lens_arr.astype(np.int32), src_i, dst_i)
+                t.node_ids = ids
+                trace.add("graph.names_built", 0)  # no names until a reader asks
+                return t
 
     names: List[str] = []
     lens: List[int] = []
@@ -137,6 +151,7 @@ def _compile(gfa_path: str, engine: str) -> GraphTensors:
                 t = line.split("\t", 5)
                 edges.append((index[t[1]], index[t[3]]))
 
+    trace.add("graph.names_built", len(names))
     with trace.span("graph.assemble"):
         node_len = np.asarray(lens, dtype=np.int32)
         if edges:
@@ -147,14 +162,38 @@ def _compile(gfa_path: str, engine: str) -> GraphTensors:
         return _assemble(names, index, node_len, src, dst)
 
 
+def ids_dense(ids: np.ndarray) -> bool:
+    """The segment ids are exactly 1..N (the native engine then indexes a
+    segment by ``id - 1``)."""
+    return bool(len(ids) and ids[0] == 1 and np.array_equal(ids, np.arange(1, len(ids) + 1)))
+
+
+def _index_of(edge_ids: np.ndarray, n: int, sorted_ids, order) -> np.ndarray:
+    """Segment index of each id in ``edge_ids``. ``order`` sorts the ``n``
+    segment ids stably into ``sorted_ids``; both are None where the ids are
+    1..N. Of segments that share an id the last wins, as in the Python
+    parser's dict; an id that no segment has raises its ``KeyError``."""
+    if order is None:
+        pos = edge_ids - 1
+        hit = (pos >= 0) & (pos < n)
+    elif n:
+        pos = np.searchsorted(sorted_ids, edge_ids, side="right") - 1
+        hit = (pos >= 0) & (sorted_ids[np.maximum(pos, 0)] == edge_ids)
+    else:
+        pos, hit = edge_ids, np.zeros(len(edge_ids), bool)
+    if not hit.all():
+        raise KeyError(str(int(edge_ids[~hit][0])))
+    return pos if order is None else order[pos]
+
+
 def _assemble(
-    names: List[str],
-    index: Dict[str, int],
+    names: Optional[List[str]],
+    index: Optional[Dict[str, int]],
     node_len: np.ndarray,
     src: np.ndarray,
     dst: np.ndarray,
 ) -> GraphTensors:
-    n = len(names)
+    n = len(node_len)
     if len(src):
         key = (src.astype(np.uint64) << np.uint64(32)) | dst.astype(np.uint64)
         order = np.argsort(key)

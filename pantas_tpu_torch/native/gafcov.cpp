@@ -1465,8 +1465,8 @@ void kidx_sort(uint64_t *kmers, int32_t *pids, int32_t *poss, int64_t n) {
 //
 // Extracts only what the tensor compiler needs — integer node ids, sequence
 // lengths, raw edge id pairs — in one mmap pass. Tags (EX/IL/OL/...) are
-// never touched. `ok` drops to 0 on a non-integer id, signalling the Python
-// caller to fall back to the general parser.
+// never touched. `ok` drops to 0 on an id that is not a canonical integer,
+// signalling the Python caller to fall back to the general parser.
 
 namespace {
 struct GfaScan {
@@ -1475,6 +1475,23 @@ struct GfaScan {
   std::vector<int64_t> esrc, edst;
   int ok = 1;
 };
+
+// The canonical decimal id at p (before le): digits only, no leading zero,
+// within int64 — exactly the spellings that str(int(id)) gives back, so the
+// caller may name a segment by its id. Returns the end of the digits, or
+// nullptr on '007', '+7', ' 7', '-7', an overflow or no digit at all.
+const char *canonical_id(const char *p, const char *le, int64_t *id) {
+  const char *q = p;
+  int64_t v = 0;
+  for (; q < le && *q >= '0' && *q <= '9'; ++q) {
+    int d = *q - '0';
+    if (v > (INT64_MAX - d) / 10) return nullptr;
+    v = v * 10 + d;
+  }
+  if (q == p || (*p == '0' && q > p + 1)) return nullptr;
+  *id = v;
+  return q;
+}
 }  // namespace
 
 void *gfa_scan(const char *path) {
@@ -1506,10 +1523,9 @@ void *gfa_scan(const char *path) {
     if (le > p + 2 && p[1] == '\t') {
       if (p[0] == 'S') {
         // S \t id \t seq [\t tags...]
-        char *q;
-        int64_t id = strtoll(p + 2, &q, 10);
-        // leading zeros would not round-trip through str(int) in the caller
-        if (q == p + 2 || *q != '\t' || (p[2] == '0' && q > p + 3)) {
+        int64_t id;
+        const char *q = canonical_id(p + 2, le, &id);
+        if (!q || q == le || *q != '\t') {
           G->ok = 0;
           break;
         }
@@ -1520,16 +1536,14 @@ void *gfa_scan(const char *path) {
         G->lens.push_back((int32_t)(seq_end - q));
       } else if (p[0] == 'L') {
         // L \t a \t +|- \t b ...
-        char *q;
-        int64_t a = strtoll(p + 2, &q, 10);
-        if (q == p + 2 || *q != '\t' || q + 2 >= le || q[2] != '\t' ||
-            (p[2] == '0' && q > p + 3)) {
+        int64_t a, b;
+        const char *q = canonical_id(p + 2, le, &a);
+        if (!q || q + 2 >= le || *q != '\t' || q[2] != '\t') {
           G->ok = 0;
           break;
         }
-        char *r;
-        int64_t b = strtoll(q + 3, &r, 10);
-        if (r == q + 3 || (q[3] == '0' && r > q + 4)) {
+        const char *r = canonical_id(q + 3, le, &b);
+        if (!r || (r < le && *r != '\t')) {
           G->ok = 0;
           break;
         }

@@ -18,7 +18,7 @@ import numpy as np
 
 from pantas_tpu_torch import trace
 from pantas_tpu_torch.coverage.host import CoverageCounts, emit_augmented_gfa
-from pantas_tpu_torch.graph.compiler import GraphTensors, compile_gfa
+from pantas_tpu_torch.graph.compiler import GraphTensors, compile_gfa, ids_dense
 
 from pantas_tpu_torch.native._build import SRC_DIR, build_shared
 
@@ -263,6 +263,23 @@ def host_threads(share: int = 1) -> int:
     return max(1, len(os.sched_getaffinity(0)) // max(share, 1))
 
 
+def _canonical_ids(names) -> np.ndarray:
+    """The Python parser's segment names as int64 ids, or ValueError unless
+    every one is a CANONICAL integer: '007' would int() onto segment '7' and
+    silently merge both segments' counts into one slot (and novel-link
+    emission would print the canonical form, breaking byte-identity). int()
+    also tolerates '+7'/' 7'/'1_0', so require plain digits with no leading
+    zero — equivalent to the str(int(n)) == n round trip but ~3x cheaper at
+    5.5M names (same guard events/sites.py claims) — and an id within int64."""
+    try:
+        ids = np.asarray([int(n) for n in names], dtype=np.int64)
+        if not all(n.isdigit() and (len(n) == 1 or n[0] != "0") for n in names):
+            raise ValueError("non-canonical integer segment id")
+    except (ValueError, OverflowError) as e:
+        raise ValueError("native path requires integer segment ids") from e
+    return ids
+
+
 def _ptr(arr: np.ndarray, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
 
@@ -275,28 +292,12 @@ class NativeCoverage:
         self.lib = lib
         self.t = tensors
         with trace.span("native.ids_check"):
-            try:
-                ids = np.asarray([int(n) for n in tensors.node_names], dtype=np.int64)
-                # CANONICAL ids only: '007' would int() onto segment '7' and
-                # silently merge both segments' counts into one slot (and
-                # novel-link emission would print the canonical form, breaking
-                # byte-identity). int() also tolerates '+7'/' 7'/'1_0', so
-                # require plain digits with no leading zero — equivalent to
-                # the str(int(n)) == n round trip but ~3x cheaper at 5.5M
-                # names (same guard events/sites.py claims).
-                if not all(
-                    n.isdigit() and (len(n) == 1 or n[0] != "0")
-                    for n in tensors.node_names
-                ):
-                    raise ValueError("non-canonical integer segment id")
-            except ValueError as e:
-                raise ValueError("native path requires integer segment ids") from e
-            order = np.argsort(ids, kind="stable")
-            if not np.array_equal(order, np.arange(len(ids))):
+            ids = tensors.node_ids  # canonical already: the scan refuses others
+            if ids is None:
+                ids = _canonical_ids(tensors.node_names)
+            if len(ids) > 1 and not np.all(ids[1:] >= ids[:-1]):
                 raise ValueError("native path requires ids sorted in file order")
-            dense = bool(
-                len(ids) > 0 and ids[0] == 1 and np.array_equal(ids, np.arange(1, len(ids) + 1))
-            )
+            dense = ids_dense(ids)
         with trace.span("native.create"):
             # keep every array alive for the lifetime of the handle
             self._ids = ids
