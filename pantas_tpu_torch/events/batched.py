@@ -37,8 +37,10 @@ from pantas_tpu_torch.events.caller import (
     SplicingGraph,
     _exon_label_th,
     _genes_of_hts,
+    _row,
     _same_gene_exons_cached,
     tkeys_of_exons,
+    transcript_of_label,
 )
 
 # candidates evaluated in this process, keyed (finder, device type);
@@ -742,6 +744,41 @@ def find_novel_ce(
     return out
 
 
+def _novel_es_rows(graph, t2g, genestrand, genechr, opts, log, devices) -> list:
+    """The novel-ES rows of :func:`find_novel_es`'s hits, as the host
+    caller writes them."""
+    # the novel-junction --junction filter WORKS in the reference
+    # (unlike the annotated pass's broken literal) — apply it here
+    hits = find_novel_es(graph, t2g, rca=opts.rca, devices=devices)
+    if opts.junction is not None:
+        hits = {c for c in hits if f"{c[0][0]}-{c[0][1]}" == opts.junction}
+    rows = []
+    for J, j1, j2 in sorted(hits):
+        inclusion = graph.jn_keys(j1) & graph.jn_keys(j2)
+        _genes = set(t2g[t] for t in inclusion)
+        if len(_genes) > 1:
+            print("Skipping ES due to multiple genes", file=log)
+            continue
+        gene = next(iter(_genes))
+        rows.append(_row(
+            "ES",
+            "novel",
+            genechr[gene],
+            gene,
+            genestrand[gene],
+            "?",
+            "|".join(x for x in graph.link[j1].jn if transcript_of_label(x) in inclusion),
+            "|".join(x for x in graph.link[j2].jn if transcript_of_label(x) in inclusion),
+            ">".join(J),
+            graph.rc(J),
+            ">".join(j1),
+            graph.rc(j1),
+            ">".join(j2),
+            graph.rc(j2),
+        ))
+    return rows
+
+
 def call_events_device(
     gfa_path: str,
     gtf_path: str,
@@ -763,6 +800,13 @@ def call_events_device(
     inside a root span ``stage.call`` of its own, and lists its rows before
     they are yielded, so a span ends where its work ends and not where the
     consumer resumes; the counters ``call.rows.<event type>`` count the rows.
+    The novel pass is one part: ``call.novel_es`` (its finder and rows),
+    ``call.novel_ss`` and ``call.novel_ce`` (their finders), then
+    ``call.novel_walk``, the host enumerator, whose loops over the novel and
+    the annotated junctions are its children
+    ``call.novel_walk.novel_junctions`` and
+    ``call.novel_walk.annotated_junctions``; the counter
+    ``call.novel_junctions`` counts the graph's novel links.
     Once the last part has ended, ``call.graph.segments`` and
     ``call.graph.links`` count the graph's file records, and
     ``call.graph.seg_built`` and ``call.graph.link_built`` the records built
@@ -788,11 +832,10 @@ def _call_events_device(gfa_path, gtf_path, opts, log, graph, devices):
 
     from pantas_tpu_torch.events.caller import (
         CSV_HEADER,
+        _annotated_junction_rows,
         _call_annotated,
-        _call_novel,
-        _row,
+        _novel_junction_rows,
         record_counts,
-        transcript_of_label,
     )
     from pantas_tpu_torch.io.gtf import parse_transcript_maps
 
@@ -883,58 +926,30 @@ def _call_events_device(gfa_path, gtf_path, opts, log, graph, devices):
             yield from _counted(rows)
     if opts.novel:
         with trace.span("stage.call"):
+            trace.add("call.novel_junctions", len(graph.novel_junctions))
             rows = []
             if "ES" in opts.events:
-                # the novel-junction --junction filter WORKS in the reference
-                # (unlike the annotated pass's broken literal) — apply it here
-                hits = find_novel_es(graph, t2g, rca=opts.rca, devices=devices)
-                if opts.junction is not None:
-                    hits = {
-                        c for c in hits if f"{c[0][0]}-{c[0][1]}" == opts.junction
-                    }
-                for J, j1, j2 in sorted(hits):
-                    inclusion = graph.jn_keys(j1) & graph.jn_keys(j2)
-                    _genes = set(t2g[t] for t in inclusion)
-                    if len(_genes) > 1:
-                        print("Skipping ES due to multiple genes", file=log)
-                        continue
-                    gene = next(iter(_genes))
-                    rows.append(_row(
-                        "ES",
-                        "novel",
-                        genechr[gene],
-                        gene,
-                        genestrand[gene],
-                        "?",
-                        "|".join(
-                            x for x in graph.link[j1].jn
-                            if transcript_of_label(x) in inclusion
-                        ),
-                        "|".join(
-                            x for x in graph.link[j2].jn
-                            if transcript_of_label(x) in inclusion
-                        ),
-                        ">".join(J),
-                        graph.rc(J),
-                        ">".join(j1),
-                        graph.rc(j1),
-                        ">".join(j2),
-                        graph.rc(j2),
-                    ))
-            ss_oracle = (
-                find_novel_ss_exonic(graph, t2g, opts, devices=devices)
-                if "SS" in opts.events
-                else None
-            )
-            ce_oracle = (
-                find_novel_ce(graph, opts, devices=devices) if "ES" in opts.events else None
-            )
-            rows += _call_novel(
-                graph, t2g, genestrand, genechr, opts, log,
-                emit_novel_es="ES" not in opts.events,
-                ss_oracle=ss_oracle,
-                ce_oracle=ce_oracle,
-            )
+                with trace.span("call.novel_es"):
+                    rows += _novel_es_rows(graph, t2g, genestrand, genechr, opts, log, devices)
+            ss_oracle = ce_oracle = None
+            if "SS" in opts.events:
+                with trace.span("call.novel_ss"):
+                    ss_oracle = find_novel_ss_exonic(graph, t2g, opts, devices=devices)
+            if "ES" in opts.events:
+                with trace.span("call.novel_ce"):
+                    ce_oracle = find_novel_ce(graph, opts, devices=devices)
+            with trace.span("call.novel_walk"):
+                with trace.span("call.novel_walk.novel_junctions"):
+                    rows += _novel_junction_rows(
+                        graph, t2g, genestrand, genechr, opts, log,
+                        emit_novel_es="ES" not in opts.events,
+                        ss_oracle=ss_oracle,
+                    )
+                if "IR" in opts.events or "ES" in opts.events:
+                    with trace.span("call.novel_walk.annotated_junctions"):
+                        rows += _annotated_junction_rows(
+                            graph, t2g, genestrand, genechr, opts, log, ce_oracle=ce_oracle
+                        )
         yield from _counted(rows)
     for name, n in record_counts(graph).items():
         trace.add(f"call.graph.{name}", n)

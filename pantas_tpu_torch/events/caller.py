@@ -737,7 +737,29 @@ def _call_novel(
     ss_oracle: Optional[Set[Tuple[Jct, int, str]]] = None,
     ce_oracle: Optional[Dict[Jct, Set[Tuple[str, str]]]] = None,
 ) -> Iterator[str]:
-    """``emit_novel_es=False`` suppresses only the novel-ES yields (the
+    """The novel pass: :func:`_novel_junction_rows`, then, where ES or IR
+    is asked for, :func:`_annotated_junction_rows`."""
+    yield from _novel_junction_rows(
+        g, t2g, genestrand, genechr, opts, log, emit_novel_es, ss_oracle
+    )
+    if "IR" in opts.events or "ES" in opts.events:
+        yield from _annotated_junction_rows(g, t2g, genestrand, genechr, opts, log, ce_oracle)
+
+
+def _novel_junction_rows(
+    g: SplicingGraph,
+    t2g,
+    genestrand,
+    genechr,
+    opts: CallOptions,
+    log,
+    emit_novel_es: bool = True,
+    ss_oracle: Optional[Set[Tuple[Jct, int, str]]] = None,
+) -> Iterator[str]:
+    """The novel pass's loop over novel junctions: novel ES, exonic and
+    intronic SS, novel IR.
+
+    ``emit_novel_es=False`` suppresses only the novel-ES yields (the
     device engine produces them); safe because the ES block writes no state
     the leaked ``p``/``n`` quirk variables could observe — ``p`` is never
     assigned there and ``n`` is reassigned before any read.
@@ -745,9 +767,7 @@ def _call_novel(
     ``ss_oracle`` (device engine): hit keys ``(J, block, node)`` from
     :func:`batched.find_novel_ss_exonic` — the exonic-SS loops then skip
     the per-candidate exon/transcript set algebra for misses and recompute
-    the exact sets only for hits. ``ce_oracle`` maps an annotated junction
-    to its novel-CE ``(exon_start, exon_end)`` pair set
-    (:func:`batched.find_novel_ce`), replacing the flank product scan."""
+    the exact sets only for hits."""
     events = opts.events
     # QUIRK: p and n mirror the reference's leaked loop variables
     # (call.py:630,685): their values persist across blocks AND across
@@ -987,171 +1007,185 @@ def _call_novel(
                                 ".",
                             )
 
-    if "IR" in events or "ES" in events:
-        # second pass over ANNOTATED junctions: novel CE and novel IR-2
-        ir2_head_cache: Dict[Tuple[str, str], List[str]] = {}
-        ir2_tail_cache: Dict[Tuple[str, str], Dict[str, List[str]]] = {}
-        for _j in g.junctions:
-            if opts.junction is not None and f"{_j[0]}-{_j[1]}" != opts.junction:
-                continue
-            if g.rc(_j) < opts.rca:
-                continue
-            jn = g.link[_j].jn
-            _ht = g.jn_keys(_j)
-            _genes = g.jn_genes(_j, t2g)
-            if len(_genes) > 1:
-                continue
-            _gene = next(iter(_genes))
-            _exons0 = _same_gene_exons_cached(g, _j[0], _genes, t2g)
-            _exons1 = _same_gene_exons_cached(g, _j[1], _genes, t2g)
-            assert len(_exons0) > 0 and len(_exons1) > 0
 
-            Js1 = g.nj_by_head.get(_j[0], g._empty_j) - set([_j])
-            Js2 = g.nj_by_tail.get(_j[1], g._empty_j) - set([_j])
+def _annotated_junction_rows(
+    g: SplicingGraph,
+    t2g,
+    genestrand,
+    genechr,
+    opts: CallOptions,
+    log,
+    ce_oracle: Optional[Dict[Jct, Set[Tuple[str, str]]]] = None,
+) -> Iterator[str]:
+    """The novel pass's loop over ANNOTATED junctions: novel CE (where ES
+    is asked for) and novel IR-2 (where IR is). ``ce_oracle`` (device
+    engine) maps an annotated junction to its novel-CE ``(exon_start,
+    exon_end)`` pair set (:func:`batched.find_novel_ce`), replacing the
+    flank product scan."""
+    events = opts.events
+    ir2_head_cache: Dict[Tuple[str, str], List[str]] = {}
+    ir2_tail_cache: Dict[Tuple[str, str], Dict[str, List[str]]] = {}
+    for _j in g.junctions:
+        if opts.junction is not None and f"{_j[0]}-{_j[1]}" != opts.junction:
+            continue
+        if g.rc(_j) < opts.rca:
+            continue
+        jn = g.link[_j].jn
+        _ht = g.jn_keys(_j)
+        _genes = g.jn_genes(_j, t2g)
+        if len(_genes) > 1:
+            continue
+        _gene = next(iter(_genes))
+        _exons0 = _same_gene_exons_cached(g, _j[0], _genes, t2g)
+        _exons1 = _same_gene_exons_cached(g, _j[1], _genes, t2g)
+        assert len(_exons0) > 0 and len(_exons1) > 0
 
-            if "ES" in events:
-                if len(Js1) > 0 and len(Js2) > 0:
-                    if ce_oracle is not None:
-                        novel_exons = ce_oracle.get(_j, set())
-                    else:
-                        novel_exons = set()
-                        for j1, j2 in product(Js1, Js2):
-                            if j1[1] <= j2[0]:  # QUIRK: lexicographic
-                                novel_exons.add((j1[1], j2[0]))
-                    for es, ee in novel_exons:
-                        j1 = (_j[0], es)
-                        j2 = (ee, _j[1])
-                        yield _row(
-                            "CE",
-                            "novel",
-                            genechr[_gene],
-                            _gene,
-                            genestrand[_gene],
-                            "|".join(jn),
-                            "?",
-                            "?",
-                            ">".join(_j),
-                            g.rc(_j),
-                            ">".join(j1),
-                            g.rc(j1),
-                            ">".join(j2),
-                            g.rc(j2),
-                        )
+        Js1 = g.nj_by_head.get(_j[0], g._empty_j) - set([_j])
+        Js2 = g.nj_by_tail.get(_j[1], g._empty_j) - set([_j])
 
-            if "IR" in events:
-                # a few edges past each end (tolerating variation nodes)
-                head_ok = any(
-                    g.rc((_j[0], str(x))) >= opts.rca
-                    for x in range(int(_j[0]) + 1, int(_j[0]) + 4)
-                    if (_j[0], str(x)) in g.link and (_j[0], str(x)) not in g.junctions
-                )
-                tail_ok = any(
-                    g.rc((str(x), _j[1])) >= opts.rca
-                    for x in range(int(_j[1]) - 3, int(_j[1]))
-                    if (str(x), _j[1]) in g.link and (str(x), _j[1]) not in g.junctions
-                )
-                if head_ok and tail_ok:
-                    # "e continues on no successor/predecessor" == absence
-                    # from the union of their exon sets. Both sides depend
-                    # only on (endpoint node, gene): cache per side — the
-                    # cached lists preserve the set-iteration order the
-                    # uncached scan would produce (same set object).
-                    key0 = (_j[0], _gene)
-                    exons0_end = ir2_head_cache.get(key0)
-                    if exons0_end is None:
-                        out_union: Set[str] = set()
-                        for x in g.out(_j[0]):
-                            out_union |= g.exset(x)
-                        exons0_end = [e for e in _exons0 if e not in out_union]
-                        ir2_head_cache[key0] = exons0_end
-                    key1 = (_j[1], _gene)
-                    tail_suf = ir2_tail_cache.get(key1)
-                    if tail_suf is None:
-                        inc_union: Set[str] = set()
-                        for x in g.inc(_j[1]):
-                            inc_union |= g.exset(x)
-                        exons1_start = [e for e in _exons1 if e not in inc_union]
-                        # pair condition "share a haplotype-aware transcript"
-                        # is label-transcript equality (labels name exactly
-                        # one transcript); group by transcript and keep only
-                        # the exon-number suffixes the jann field needs
-                        # (`e2.split(".")[-1]`, reference call.py:1060-1067)
-                        tail_suf = {}
-                        for e1x in exons1_start:
-                            tail_suf.setdefault(_exon_label_th(e1x)[0], []).append(
-                                "." + e1x.rsplit(".", 1)[-1]
-                            )
-                        ir2_tail_cache[key1] = tail_suf
-                    has_pairs = any(
-                        _exon_label_th(e0)[0] in tail_suf for e0 in exons0_end
+        if "ES" in events:
+            if len(Js1) > 0 and len(Js2) > 0:
+                if ce_oracle is not None:
+                    novel_exons = ce_oracle.get(_j, set())
+                else:
+                    novel_exons = set()
+                    for j1, j2 in product(Js1, Js2):
+                        if j1[1] <= j2[0]:  # QUIRK: lexicographic
+                            novel_exons.add((j1[1], j2[0]))
+                for es, ee in novel_exons:
+                    j1 = (_j[0], es)
+                    j2 = (ee, _j[1])
+                    yield _row(
+                        "CE",
+                        "novel",
+                        genechr[_gene],
+                        _gene,
+                        genestrand[_gene],
+                        "|".join(jn),
+                        "?",
+                        "?",
+                        ">".join(_j),
+                        g.rc(_j),
+                        ">".join(j1),
+                        g.rc(j1),
+                        ">".join(j2),
+                        g.rc(j2),
                     )
-                    if has_pairs:
-                        subpath = [_j[0]]
-                        dead_end = False
-                        while subpath[-1] != _j[1]:
-                            onodes = [x for x in g.out(subpath[-1]) if x <= _j[1]]
-                            if len(subpath) == 1 and _j[1] in onodes:
-                                onodes.remove(_j[1])
-                            if _j[1] in onodes:
-                                subpath.append(_j[1])
-                            else:
-                                onodes = [x for x in onodes if len(g.out(x)) > 0]
-                                if not onodes:
-                                    # DIVERGENCE from the reference: its greedy
-                                    # walk dead-ends here and crashes with
-                                    # max() on an empty list (call.py:1049) —
-                                    # the lexicographic `x <= _j[1]` filter
-                                    # wrongly excludes nodes at scale. We skip
-                                    # the candidate event and keep calling.
-                                    dead_end = True
-                                    break
-                                best = max(onodes, key=lambda x: g.nc(x))
-                                subpath.append(best)
-                        if dead_end:
-                            print(
-                                f"Skipping novel IR at {_j[0]}>{_j[1]}: "
-                                "greedy intron walk dead-ended",
-                                file=log,
+
+        if "IR" in events:
+            # a few edges past each end (tolerating variation nodes)
+            head_ok = any(
+                g.rc((_j[0], str(x))) >= opts.rca
+                for x in range(int(_j[0]) + 1, int(_j[0]) + 4)
+                if (_j[0], str(x)) in g.link and (_j[0], str(x)) not in g.junctions
+            )
+            tail_ok = any(
+                g.rc((str(x), _j[1])) >= opts.rca
+                for x in range(int(_j[1]) - 3, int(_j[1]))
+                if (str(x), _j[1]) in g.link and (str(x), _j[1]) not in g.junctions
+            )
+            if head_ok and tail_ok:
+                # "e continues on no successor/predecessor" == absence
+                # from the union of their exon sets. Both sides depend
+                # only on (endpoint node, gene): cache per side — the
+                # cached lists preserve the set-iteration order the
+                # uncached scan would produce (same set object).
+                key0 = (_j[0], _gene)
+                exons0_end = ir2_head_cache.get(key0)
+                if exons0_end is None:
+                    out_union: Set[str] = set()
+                    for x in g.out(_j[0]):
+                        out_union |= g.exset(x)
+                    exons0_end = [e for e in _exons0 if e not in out_union]
+                    ir2_head_cache[key0] = exons0_end
+                key1 = (_j[1], _gene)
+                tail_suf = ir2_tail_cache.get(key1)
+                if tail_suf is None:
+                    inc_union: Set[str] = set()
+                    for x in g.inc(_j[1]):
+                        inc_union |= g.exset(x)
+                    exons1_start = [e for e in _exons1 if e not in inc_union]
+                    # pair condition "share a haplotype-aware transcript"
+                    # is label-transcript equality (labels name exactly
+                    # one transcript); group by transcript and keep only
+                    # the exon-number suffixes the jann field needs
+                    # (`e2.split(".")[-1]`, reference call.py:1060-1067)
+                    tail_suf = {}
+                    for e1x in exons1_start:
+                        tail_suf.setdefault(_exon_label_th(e1x)[0], []).append(
+                            "." + e1x.rsplit(".", 1)[-1]
+                        )
+                    ir2_tail_cache[key1] = tail_suf
+                has_pairs = any(
+                    _exon_label_th(e0)[0] in tail_suf for e0 in exons0_end
+                )
+                if has_pairs:
+                    subpath = [_j[0]]
+                    dead_end = False
+                    while subpath[-1] != _j[1]:
+                        onodes = [x for x in g.out(subpath[-1]) if x <= _j[1]]
+                        if len(subpath) == 1 and _j[1] in onodes:
+                            onodes.remove(_j[1])
+                        if _j[1] in onodes:
+                            subpath.append(_j[1])
+                        else:
+                            onodes = [x for x in onodes if len(g.out(x)) > 0]
+                            if not onodes:
+                                # DIVERGENCE from the reference: its greedy
+                                # walk dead-ends here and crashes with
+                                # max() on an empty list (call.py:1049) —
+                                # the lexicographic `x <= _j[1]` filter
+                                # wrongly excludes nodes at scale. We skip
+                                # the candidate event and keep calling.
+                                dead_end = True
+                                break
+                            best = max(onodes, key=lambda x: g.nc(x))
+                            subpath.append(best)
+                    if dead_end:
+                        print(
+                            f"Skipping novel IR at {_j[0]}>{_j[1]}: "
+                            "greedy intron walk dead-ended",
+                            file=log,
+                        )
+                        continue
+                    if (
+                        sum(g.seg[x].length for x in subpath[1:-1])
+                        >= opts.minintronsize
+                    ):
+                        retained = {
+                            t
+                            for t in (_exon_label_th(e0)[0] for e0 in exons0_end)
+                            if t in tail_suf
+                        }
+                        _genes = set(t2g[t] for t in retained)
+                        if len(_genes) > 1:
+                            print("Skipping novel IR due to multiple genes", file=log)
+                        else:
+                            _gene = next(iter(_genes))
+                            jann = "|".join(
+                                e0 + s
+                                for e0 in exons0_end
+                                for s in tail_suf.get(_exon_label_th(e0)[0], ())
                             )
-                            continue
-                        if (
-                            sum(g.seg[x].length for x in subpath[1:-1])
-                            >= opts.minintronsize
-                        ):
-                            retained = {
-                                t
-                                for t in (_exon_label_th(e0)[0] for e0 in exons0_end)
-                                if t in tail_suf
-                            }
-                            _genes = set(t2g[t] for t in retained)
-                            if len(_genes) > 1:
-                                print("Skipping novel IR due to multiple genes", file=log)
-                            else:
-                                _gene = next(iter(_genes))
-                                jann = "|".join(
-                                    e0 + s
-                                    for e0 in exons0_end
-                                    for s in tail_suf.get(_exon_label_th(e0)[0], ())
-                                )
-                                cov = ceil(
-                                    sum(g.nc(x) for x in subpath) / len(subpath)
-                                )
-                                yield _row(
-                                    "IR",
-                                    "novel",
-                                    genechr[_gene],
-                                    _gene,
-                                    genestrand[_gene],
-                                    jann,
-                                    "?",
-                                    ".",
-                                    ">".join(subpath),
-                                    cov,
-                                    ">".join(_j),
-                                    g.rc(_j),
-                                    ".",
-                                    ".",
-                                )
+                            cov = ceil(
+                                sum(g.nc(x) for x in subpath) / len(subpath)
+                            )
+                            yield _row(
+                                "IR",
+                                "novel",
+                                genechr[_gene],
+                                _gene,
+                                genestrand[_gene],
+                                jann,
+                                "?",
+                                ".",
+                                ">".join(subpath),
+                                cov,
+                                ">".join(_j),
+                                g.rc(_j),
+                                ".",
+                                ".",
+                            )
 
 
 def _frontier_search(

@@ -502,7 +502,10 @@ class NativeCoverage:
         return counts
 
     def emit(self, gfa_in: str, out_fd: int) -> None:
-        """Write the augmented GFA natively to a file descriptor."""
+        """Write the augmented GFA natively to a file descriptor. While
+        tracing is on, its phases are spans (:data:`EMIT_PHASES`), its sizes
+        counters (:data:`EMIT_COUNTS`), and ``emit.novel_links`` counts the
+        novel links it appends, one a sidecar entry."""
         from pantas_tpu_torch.io.xopen import materialized
 
         with trace.span("native.emit"):
@@ -516,6 +519,7 @@ class NativeCoverage:
                     trace.record(name, t0, t1)
                 for name, n in sizes.items():
                     trace.add(name, n)
+                trace.add("emit.novel_links", int(self.lib.gafcov_novel_count(self.handle)))
 
     def emit_stats(self):
         """The last emission's phases, ``{name: (t0, t1)}`` in

@@ -322,7 +322,17 @@ CALL_PARENTS = {
     **{f"call.{f}.{part}": {f"call.{f}"} for f in FINDERS for part in ("candidates", "match")},
     "call.rows": {f"call.{f}" for f in FINDERS},
 }
-NOVEL_FINDERS = ("novel_es", "novel_ss_exonic", "novel_ce")
+# the novel pass's spans under its root: each finder's span holds its host
+# half and its match, the host enumerator's its two loops
+NOVEL_PARENTS = {
+    **{f"call.{f}": {"stage.call"} for f in ("novel_es", "novel_ss", "novel_ce", "novel_walk")},
+    **{f"call.{f}.{part}": {f"call.{outer}"}
+       for f, outer in (("novel_es", "novel_es"), ("novel_ss_exonic", "novel_ss"),
+                        ("novel_ce", "novel_ce"))
+       for part in ("candidates", "match")},
+    "call.novel_walk.novel_junctions": {"call.novel_walk"},
+    "call.novel_walk.annotated_junctions": {"call.novel_walk"},
+}
 
 
 @pytest.fixture
@@ -349,10 +359,7 @@ def test_call_spans_nest_where_the_work_happens(call_inputs, novel):
     on = _call(*call_inputs, novel=novel)
     spans = trace.snapshot()["spans"]
     assert on == off and len(on) > 1
-    parents = dict(CALL_PARENTS)
-    if novel:  # the novel finders run under the root
-        for f in NOVEL_FINDERS:
-            parents[f"call.{f}.candidates"] = parents[f"call.{f}.match"] = {"stage.call"}
+    parents = dict(CALL_PARENTS, **(NOVEL_PARENTS if novel else {}))
     assert set(_names(spans)) == set(parents)
     assert _names(spans).count("call.rows") == len(FINDERS)
     # a root for the loads and one for each finder's part (one for the novel pass)
@@ -418,3 +425,46 @@ def test_call_counts_agree_with_the_rows(call_inputs, novel):
     assert c["call.h2d_bytes"] > 4 * sum(want.values())  # the indices and the tables
     trace.reset()
     assert trace.snapshot()["counters"] == {"kernels.launches": 0}
+
+
+@pytest.mark.parametrize("case", ["splice", "cassette"])
+def test_call_novel_junctions_counts_the_graphs_novel_links(tmp_path, case):
+    """``call.novel_junctions`` is the number of the GFA's ``ID:Z:N`` links,
+    counted once a novel call, and no annotated call counts it."""
+    from fixtures_call import write_call_fixtures
+
+    gfa, gtf = write_call_fixtures(tmp_path)[case]
+    novel = sum(line.rstrip("\n").endswith("\tID:Z:N") for line in open(gfa))
+    assert novel > 0
+    trace.enable()
+    _call(gfa, gtf)
+    assert "call.novel_junctions" not in trace.snapshot()["counters"]
+    rows = _call(gfa, gtf, novel=True, no_annotated=True, minintronsize=4)
+    assert any(",novel," in r for r in rows)
+    assert trace.snapshot()["counters"]["call.novel_junctions"] == novel
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+def test_emitted_novel_links_are_counted_in_first_seen_order(tmp_path, threads):
+    """A GAF whose records cross two absent links, the second one's first
+    (1>3) a third of the way in and the first one's (3>5) two thirds in:
+    the device augment appends both, in that order, as the host engine
+    does, also when the parse's waves cut the file into pieces, and
+    ``emit.novel_links`` counts them."""
+    from fixtures_micro import MICRO_GAF_LINES
+
+    gfa, _ = write_micro(tmp_path)
+    by_name = {line.split("\t", 1)[0]: line for line in MICRO_GAF_LINES}
+    plain = "".join(line + "\n" for name, line in by_name.items() if name not in ("r9", "r12"))
+    block = plain * 1500
+    gaf = tmp_path / "late.gaf"
+    gaf.write_text(block + by_name["r12"] + "\n" + block + by_name["r9"] + "\n" + block)
+    trace.enable()
+    out, _ = _augment(gaf, gfa, tmp_path / "on.gfa", flush_every=1 << 18, threads=threads)
+    c = trace.snapshot()["counters"]
+    assert out == _host_bytes(gaf, gfa)
+    novel = [line.split("\t")[1:4:2] for line in out.decode().splitlines()
+             if line.endswith("\tID:Z:N")]
+    assert novel == [["1", "3"], ["3", "5"]]
+    assert c["emit.novel_links"] == len(novel)
+    assert c["slots.threads"] == threads
