@@ -829,8 +829,9 @@ void gafcov_novel_fill(void *h, uint64_t *keys, int32_t *vals) {
 //
 // Copy gfa_in appending NC/IL/OL to S lines and RC to L lines
 // (byte-identical to the reference augmenter's output), then novel links in
-// first-seen order. Parallel formatting: the input splits into line-aligned
-// chunks processed by worker threads in waves, each chunk formatted into a
+// first-seen order. Parallel formatting: a GFA of 8 MiB or more splits into
+// about four line-aligned chunks a thread (1 MiB at the least but the last),
+// which the threads take from a shared worklist, each chunk formatted into a
 // private buffer, buffers written in order — output bytes are identical to
 // the serial walk. The one piece of sequential state is the reference's
 // duplicate-L-line rule (only the FIRST occurrence of an edge prints its
@@ -941,7 +942,8 @@ bool emit_range(Engine *E, const char *begin, const char *end, const char *hard_
 // seen-order binning, [2, 3] the slurp of the GFA, [4, 5] the formatting of
 // its lines, [6, 7] every write to out_fd and its close (the time blocked on
 // whoever reads the output), [8, 9] the formatting of the novel links; then
-// [10] the chunks formatted, [11] the threads started (1 on the serial path),
+// [10] the chunks formatted, [11] the threads that formatted them (1 on the
+// serial path, else the fewer of the threads asked for and the chunks),
 // [12] the bytes written. The formatted body is held until the novel links
 // are formatted too, so all writing is one phase; the bytes are unchanged.
 int64_t gafcov_emit_mt(void *h, const char *gfa_in, int out_fd, int n_threads) {
@@ -993,23 +995,26 @@ int64_t gafcov_emit_mt(void *h, const char *gfa_in, int out_fd, int n_threads) {
   std::vector<std::string> bufs;  // the formatted body, in file order
   if (n_threads < 1) n_threads = 1;
   // PANTAS_EMIT_FORCE_MT lets tests exercise the chunked path on tiny files
-  if (n_threads == 1 ||
-      (fsize < (8 << 20) && !getenv("PANTAS_EMIT_FORCE_MT"))) {
+  const bool force_mt = getenv("PANTAS_EMIT_FORCE_MT") != nullptr;
+  if (n_threads == 1 || (fsize < (8 << 20) && !force_mt)) {
     bufs.resize(1);
     emit_range(E, buf, buf + fsize, buf + fsize + 1, il_offs, ol_offs,
                claimed.data(), false, bufs[0]);
     st[10] = 1;
     st[11] = 1;
   } else {
-    // line-aligned chunks formatted by a dynamic worklist of T threads;
-    // every buffer is formatted BEFORE any byte is written, so the
-    // duplicate-edge fallback can redo serially even when out_fd is a
-    // pipe (formatted output briefly holds ~1.05x the input in RAM)
-    const int64_t CHUNK = 64 << 20;
+    // about 4 line-aligned chunks a thread, so that a dynamic worklist
+    // evens out chunks of uneven cost; 1 MiB at the least but the last
+    // (under the test hook, one line), so no thread is started for a
+    // sliver. Every buffer is formatted BEFORE any byte is written, so the
+    // duplicate-edge fallback can redo serially even when out_fd is a pipe
+    // (formatted output briefly holds ~1.05x the input in RAM)
+    const int64_t chunk =
+        std::max<int64_t>(force_mt ? 1 : 1 << 20, fsize / (4 * (int64_t)n_threads));
     std::vector<const char *> cuts;
     cuts.push_back(buf);
     while (cuts.back() < buf + fsize) {
-      const char *guess = cuts.back() + std::min<int64_t>(CHUNK, buf + fsize - cuts.back());
+      const char *guess = cuts.back() + std::min<int64_t>(chunk, buf + fsize - cuts.back());
       if (guess >= buf + fsize) {
         cuts.push_back(buf + fsize);
         break;
@@ -1021,8 +1026,9 @@ int64_t gafcov_emit_mt(void *h, const char *gfa_in, int out_fd, int n_threads) {
     bufs.resize(n_chunks);
     std::atomic<size_t> next{0};
     std::atomic<bool> fail{false};
+    const int n_workers = (int)std::min<size_t>(n_threads, n_chunks);
     std::vector<std::thread> threads;
-    for (int t = 0; t < n_threads; ++t) {
+    for (int t = 0; t < n_workers; ++t) {
       threads.emplace_back([&]() {
         size_t c;
         while ((c = next.fetch_add(1)) < n_chunks && !fail.load()) {
@@ -1034,7 +1040,7 @@ int64_t gafcov_emit_mt(void *h, const char *gfa_in, int out_fd, int n_threads) {
     }
     for (auto &t : threads) t.join();
     st[10] = (int64_t)n_chunks;
-    st[11] = n_threads;
+    st[11] = n_workers;
     if (fail.load()) {
       // duplicate L line: FILE order (not claim order) must decide which
       // occurrence prints the weight — redo in one ordered pass

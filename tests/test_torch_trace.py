@@ -201,7 +201,14 @@ def test_emission_stats_follow_the_path(inputs, tmp_path, monkeypatch, env, thre
     snap = trace.snapshot()
     assert out == _host_bytes(gaf, gfa)
     c = snap["counters"]
-    assert (c["emit.chunks"], c["emit.threads"], c["emit.bytes_out"]) == (1, threads, len(out))
+    assert c["emit.bytes_out"] == len(out)
+    if threads == 1:
+        assert (c["emit.chunks"], c["emit.threads"]) == (1, 1)
+    else:
+        # about four chunks a thread, one line apiece at the least under the
+        # hook; only the threads that have a chunk are started
+        assert c["emit.chunks"] >= 2
+        assert c["emit.threads"] == min(threads, c["emit.chunks"])
     phases = [s for s in snap["spans"] if s[0] in EMIT_PHASES]
     assert _names(phases) == list(EMIT_PHASES)
     order = sorted(phases, key=lambda s: s[1])
